@@ -1,0 +1,178 @@
+"""Wrappers around the hand-written CUDA kernels (``csrc/``).
+
+Each wrapper runs its kernel's plain PyTorch version (``ref.py``) when its
+tensors lie on the CPU, and only then.  For CUDA tensors it checks device,
+dtype, shape and contiguity, allocates the outputs, launches the kernel on
+the current stream and raises if the launch fails; it never falls back.
+
+``launches`` counts the kernel launches per wrapper (plain-version calls do
+not count), so a run can show that its path went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import torch
+
+from . import build, ref
+from ..core.incidence import eps_sq
+
+launches: Dict[str, int] = {"ell_spmv": 0, "fused_ell_sweep": 0,
+                            "block_diag_matvec": 0}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "ell_spmv_f32": ("ell_spmv", [_P] * 5 + [_I] * 4 + [_P]),
+    "ell_spmv_bf16": ("ell_spmv", [_P] * 5 + [_I] * 4 + [_P]),
+    "fused_ell_sweep_f32": ("fused_ell_sweep",
+                            [_P] * 5 + [_F] + [_P] * 4 + [_I] * 4 + [_P]),
+    "block_diag_matvec_f32": ("block_diag_matvec", [_P] * 3 + [_I] * 2 + [_P]),
+}
+_fns: Dict[str, ctypes._CFuncPtr] = {}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _fn(symbol: str):
+    fn = _fns.get(symbol)
+    if fn is None:
+        lib_name, argtypes = _SIGNATURES[symbol]
+        fn = getattr(build.load(lib_name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[symbol] = fn
+    return fn
+
+
+def _launch(symbol: str, device: torch.device, *args) -> None:
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = _fn(symbol)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {symbol} failed to launch "
+                           f"(cudaError {rc})")
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU; raises when the tensors are
+    spread over devices or lie on a device other than CPU or CUDA."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
+    device = devices.pop()
+    if device.type == "cpu":
+        return True
+    if device.type != "cuda":
+        raise ValueError(f"no kernel for device {device}")
+    return False
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _contiguous(**tensors: torch.Tensor) -> None:
+    for name, t in tensors.items():
+        _require(t.is_contiguous(), f"{name} must be contiguous")
+
+
+def _group(k: int) -> int:
+    """Lanes per row: the smallest power of two >= k, at most a warp."""
+    g = 1
+    while g < k and g < 32:
+        g *= 2
+    return g
+
+
+def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, diag: torch.Tensor,
+             v: torch.Tensor) -> torch.Tensor:
+    """ELLPACK SpMV  y = diag⊙v + Σ_lane vals⊙v[cols]  (float32 or bfloat16;
+    the CUDA kernel sums in float32)."""
+    if _on_cpu(cols, vals, diag, v):
+        return ref.ell_spmv_ref(cols, vals, diag, v)
+    n, k = cols.shape
+    _require(cols.dtype == torch.int32, "cols must be int32")
+    _require(v.dtype in (torch.float32, torch.bfloat16),
+             f"v must be float32 or bfloat16, got {v.dtype}")
+    _require(vals.dtype == diag.dtype == v.dtype,
+             "vals, diag and v must share one dtype")
+    _require(vals.shape == (n, k) and diag.shape == (n,) and v.shape == (n,),
+             f"shapes: cols {tuple(cols.shape)}, vals {tuple(vals.shape)}, "
+             f"diag {tuple(diag.shape)}, v {tuple(v.shape)}")
+    _contiguous(cols=cols, vals=vals, diag=diag, v=v)
+    y = torch.empty(n, dtype=v.dtype, device=v.device)
+    symbol = "ell_spmv_f32" if v.dtype == torch.float32 else "ell_spmv_bf16"
+    _launch(symbol, v.device, cols.data_ptr(), vals.data_ptr(),
+            diag.data_ptr(), v.data_ptr(), y.data_ptr(), n, k, n, _group(k))
+    launches["ell_spmv"] += 1
+    return y
+
+
+def fused_ell_sweep(cols: torch.Tensor, c_ell: torch.Tensor,
+                    c_s: torch.Tensor, c_t: torch.Tensor, v: torch.Tensor,
+                    eps):
+    """Single-sweep IRLS system build: (vals, diag, r_s, r_t) from one pass
+    over the slot-major edge data.  ``v`` may be longer than the row count
+    (halo-extended); its first ``cols.shape[0]`` entries are the row
+    voltages.  ε² is squared in float32, as the solver squares it."""
+    if _on_cpu(cols, c_ell, c_s, c_t, v):
+        return ref.fused_ell_sweep_ref(cols, c_ell, c_s, c_t, v, eps)
+    n, k = cols.shape
+    nv = v.shape[0]
+    _require(cols.dtype == torch.int32, "cols must be int32")
+    _require(all(t.dtype == torch.float32 for t in (c_ell, c_s, c_t, v)),
+             "c_ell, c_s, c_t and v must be float32")
+    _require(c_ell.shape == (n, k) and c_s.shape == (n,) and c_t.shape == (n,)
+             and v.dim() == 1 and nv >= n,
+             f"shapes: cols {tuple(cols.shape)}, c_ell {tuple(c_ell.shape)}, "
+             f"c_s {tuple(c_s.shape)}, c_t {tuple(c_t.shape)}, v {tuple(v.shape)}")
+    _contiguous(cols=cols, c_ell=c_ell, c_s=c_s, c_t=c_t, v=v)
+    vals = torch.empty((n, k), dtype=v.dtype, device=v.device)
+    diag, r_s, r_t = (torch.empty(n, dtype=v.dtype, device=v.device)
+                      for _ in range(3))
+    _launch("fused_ell_sweep_f32", v.device, cols.data_ptr(),
+            c_ell.data_ptr(), c_s.data_ptr(), c_t.data_ptr(), v.data_ptr(),
+            eps_sq(eps), vals.data_ptr(), diag.data_ptr(), r_s.data_ptr(),
+            r_t.data_ptr(), n, k, nv, _group(k))
+    launches["fused_ell_sweep"] += 1
+    return vals, diag, r_s, r_t
+
+
+# x[p] is staged in the 48 KB of shared memory a block gets without opting in
+_MAX_BS = 48 * 1024 // 4
+
+
+def block_diag_matvec(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Batched block-diagonal matvec  y[p] = blocks[p] @ x[p]  (float32)."""
+    if _on_cpu(blocks, x):
+        return ref.block_diag_matvec_ref(blocks, x)
+    p, bs, bs2 = blocks.shape
+    _require(bs == bs2 and x.shape == (p, bs),
+             f"shapes: blocks {tuple(blocks.shape)}, x {tuple(x.shape)}")
+    _require(blocks.dtype == x.dtype == torch.float32,
+             "blocks and x must be float32")
+    _require(bs <= _MAX_BS, f"block size {bs} exceeds {_MAX_BS}")
+    _contiguous(blocks=blocks, x=x)
+    y = torch.empty((p, bs), dtype=x.dtype, device=x.device)
+    _launch("block_diag_matvec_f32", x.device, blocks.data_ptr(),
+            x.data_ptr(), y.data_ptr(), p, bs)
+    launches["block_diag_matvec"] += 1
+    return y
+
+
+def edge_reweight_r(src: torch.Tensor, dst: torch.Tensor, c: torch.Tensor,
+                    v: torch.Tensor, eps) -> torch.Tensor:
+    """Per-edge reweighted conductances r_e (COO layout), the ``edge_r`` of
+    ``core.laplacian.reweight`` under ``use_pallas``.  Its CUDA kernel is
+    not written yet (ROADMAP queue 2, item 4): CUDA tensors raise."""
+    if _on_cpu(src, dst, c, v):
+        return ref.edge_reweight_ref(src, dst, c, v, eps)
+    raise NotImplementedError(
+        "edge_reweight has no CUDA kernel yet (ROADMAP queue 2, item 4); "
+        "use the fused ELL path (layout='ell', fuse_edge_sweep=True) or "
+        "use_pallas=False")

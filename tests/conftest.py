@@ -27,3 +27,9 @@ def tiny_instance(n=8, seed=0):
     from repro.graphs import generators as gen
     g = gen.random_regular(n, 3, seed=seed)
     return gen.flow_improve_instance(g, seed=seed + 1)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card and nvcc (the port's CUDA "
+        "kernels); skips without one")

@@ -1,0 +1,44 @@
+"""The port stands alone: every ``repro_torch`` module imports with ``jax``
+blocked, and none of them loads a module of the JAX package ``repro``."""
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+
+_PROBE = """
+import pkgutil, sys
+sys.modules["jax"] = None            # any `import jax` now raises
+import repro_torch
+names = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                     "repro_torch."))
+for name in names:
+    __import__(name)
+loaded = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
+assert not loaded, loaded
+assert "jax" not in sys.modules or sys.modules["jax"] is None
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax_or_repro():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15   # every module was walked
+
+
+def test_port_sources_name_no_jax_or_repro():
+    """No source file of the port spells an import of jax or of repro."""
+    for path in (SRC / "repro_torch").rglob("*.py"):
+        for line in path.read_text().splitlines():
+            s = line.strip()
+            assert not s.startswith(("import jax", "from jax")), (path, s)
+            assert not s.startswith(("import repro.", "from repro.",
+                                     "from repro import")), (path, s)

@@ -1,0 +1,184 @@
+"""The port's kernel wrappers and plain versions (CPU) against the JAX
+package's kernels (Pallas interpret mode) and its jnp oracles, on the shape
+sweeps of tests/test_kernels.py.  Inputs come from numpy seeds and reach
+both packages as the same arrays.
+
+On the CPU every wrapper runs its kernel's plain version, so these tests
+hold the arithmetic the CUDA kernels implement; tests/test_torch_cuda.py
+holds the kernels themselves against the same plain versions on a card."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops, ref as jref  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
+
+
+def _both(*arrays):
+    return (tuple(jnp.asarray(a) for a in arrays),
+            tuple(torch.as_tensor(a) for a in arrays))
+
+
+# float32: 1e-5 as tests/test_kernels.py — only the summation order differs.
+# bfloat16: 3e-2 as there — products round to 8 mantissa bits at other
+# points in the two frameworks.
+@pytest.mark.parametrize("n,k", [(64, 4), (512, 8), (777, 9), (1531, 33),
+                                 (2048, 26)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ell_spmv_sweep(n, k, dtype):
+    rng = np.random.default_rng(n * k)
+    cols = rng.integers(0, n, size=(n, k)).astype(np.int32)
+    vals = rng.standard_normal((n, k)).astype(np.float32)
+    vals[rng.uniform(size=(n, k)) < 0.4] = 0.0
+    diag = rng.uniform(1, 3, size=n).astype(np.float32)
+    v = rng.standard_normal(n).astype(np.float32)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    jargs = (jnp.asarray(cols), jnp.asarray(vals, jd), jnp.asarray(diag, jd),
+             jnp.asarray(v, jd))
+    targs = (torch.as_tensor(cols), torch.as_tensor(vals).to(td),
+             torch.as_tensor(diag).to(td), torch.as_tensor(v).to(td))
+    y = ops.ell_spmv(*targs)
+    assert y.dtype == td and y.shape == (n,)
+    tol = 1e-5 if dtype == "float32" else 3e-2
+    y = y.float().numpy()
+    for y_ref in (jops.ell_spmv(*jargs), jref.ell_spmv_ref(*jargs)):
+        np.testing.assert_allclose(y, np.asarray(y_ref, np.float32),
+                                   rtol=tol, atol=tol * 10)
+
+
+# 3e-5: the bar tests/test_kernels.py sets for its kernel (rsqrt vs 1/sqrt).
+@pytest.mark.parametrize("m,n", [(100, 64), (4096, 512), (5000, 300),
+                                 (12288, 1024)])
+@pytest.mark.parametrize("eps", [1e-6, 1e-2])
+def test_edge_reweight_sweep(m, n, eps):
+    rng = np.random.default_rng(m + n)
+    src = rng.integers(0, n, m).astype(np.int32)
+    dst = rng.integers(0, n, m).astype(np.int32)
+    c = rng.uniform(0.1, 3.0, m).astype(np.float32)
+    v = rng.uniform(0, 1, n).astype(np.float32)
+    jargs, targs = _both(src, dst, c, v)
+    r = ops.edge_reweight_r(*targs, eps).numpy()
+    np.testing.assert_allclose(r, ref.edge_reweight_ref(*targs, eps).numpy(),
+                               rtol=0, atol=0)
+    for r_ref in (jops.edge_reweight_r(*jargs, eps),
+                  jref.edge_reweight_ref(*jargs, eps)):
+        np.testing.assert_allclose(r, np.asarray(r_ref), rtol=3e-5)
+
+
+@pytest.mark.parametrize("n,k", [(64, 4), (512, 8), (777, 9), (1100, 17)])
+@pytest.mark.parametrize("eps", [1e-6, 1e-2])
+def test_fused_ell_sweep_sweep(n, k, eps):
+    """The port's sweep wrapper and its core fallback against the Pallas
+    kernel and the jnp oracle: all agree on (vals, diag, r_s, r_t) at the
+    rtol 3e-5 / atol 1e-6 of tests/test_kernels.py."""
+    from repro_torch.core import laplacian as lap
+
+    rng = np.random.default_rng(n * k)
+    cols = rng.integers(0, n, size=(n, k)).astype(np.int32)
+    c_ell = rng.uniform(0.1, 3.0, size=(n, k)).astype(np.float32)
+    c_ell[rng.uniform(size=(n, k)) < 0.4] = 0.0       # padded slots
+    c_s = rng.uniform(0, 2, size=n).astype(np.float32)
+    c_t = rng.uniform(0, 2, size=n).astype(np.float32)
+    c_s[rng.uniform(size=n) < 0.3] = 0.0              # absent terminals
+    c_t[rng.uniform(size=n) < 0.3] = 0.0
+    v = rng.uniform(0, 1, size=n).astype(np.float32)
+    jargs, targs = _both(cols, c_ell, c_s, c_t, v)
+    outs_t = (ops.fused_ell_sweep(*targs, eps), lap.fused_ell_sweep(*targs, eps))
+    outs_j = (jops.fused_ell_sweep(*jargs, eps),
+              jref.fused_ell_sweep_ref(*jargs, eps))
+    for out_t in outs_t:
+        for out_j in outs_j:
+            for yt, yj in zip(out_t, out_j):
+                np.testing.assert_allclose(yt.numpy(), np.asarray(yj),
+                                           rtol=3e-5, atol=1e-6)
+
+
+def test_fused_ell_sweep_halo_extended_v():
+    """``v`` longer than the row count: rows read its head, ``cols`` may
+    gather from the tail (the halo-extended form)."""
+    rng = np.random.default_rng(11)
+    n, nv, k = 300, 420, 6
+    cols = rng.integers(0, nv, size=(n, k)).astype(np.int32)
+    c_ell = rng.uniform(0.1, 3.0, size=(n, k)).astype(np.float32)
+    c_s = rng.uniform(0, 2, size=n).astype(np.float32)
+    c_t = rng.uniform(0, 2, size=n).astype(np.float32)
+    v = rng.uniform(0, 1, size=nv).astype(np.float32)
+    jargs, targs = _both(cols, c_ell, c_s, c_t, v)
+    for yt, yj in zip(ops.fused_ell_sweep(*targs, 1e-3),
+                      jops.fused_ell_sweep(*jargs, 1e-3)):
+        np.testing.assert_allclose(yt.numpy(), np.asarray(yj),
+                                   rtol=3e-5, atol=1e-6)
+
+
+# rtol 1e-5 / atol 1e-4 as tests/test_kernels.py: float32 dot products of
+# length bs summed in another order.
+@pytest.mark.parametrize("p,bs", [(1, 16), (4, 100), (8, 128), (3, 200)])
+def test_block_diag_matvec_sweep(p, bs):
+    rng = np.random.default_rng(p * bs)
+    A = rng.standard_normal((p, bs, bs)).astype(np.float32)
+    x = rng.standard_normal((p, bs)).astype(np.float32)
+    jargs, targs = _both(A, x)
+    y = ops.block_diag_matvec(*targs).numpy()
+    for y_ref in (jops.block_diag_matvec(*jargs),
+                  jref.block_diag_matvec_ref(*jargs)):
+        np.testing.assert_allclose(y, np.asarray(y_ref), rtol=1e-5, atol=1e-4)
+
+
+def test_each_kernel_has_one_plain_version():
+    """``ref`` names the functions the solver's plain path runs, so a kernel
+    held against its plain version is held against that path; the unfused
+    reweight takes its r_e from the kernel wrapper under use_pallas."""
+    from repro_torch.core import DeviceGraph, laplacian as lap, precond as pc
+
+    assert ref.ell_spmv_ref is lap.matvec_ell
+    assert ref.fused_ell_sweep_ref is lap.fused_ell_sweep
+    assert ref.edge_reweight_ref is lap.edge_conductances
+    assert ref.block_diag_matvec_ref is pc.block_diag_matvec
+    rng = np.random.default_rng(5)
+    n, m = 50, 200
+    g = DeviceGraph(src=torch.as_tensor(rng.integers(0, n, m)),
+                    dst=torch.as_tensor(rng.integers(0, n, m)),
+                    c=torch.as_tensor(rng.uniform(0.1, 3, m), dtype=torch.float32),
+                    c_s=torch.as_tensor(rng.uniform(0, 2, n), dtype=torch.float32),
+                    c_t=torch.as_tensor(rng.uniform(0, 2, n), dtype=torch.float32))
+    v = torch.as_tensor(rng.uniform(0, 1, n), dtype=torch.float32)
+    for a, b in zip(lap.reweight(g, v, 1e-6),
+                    lap.reweight(g, v, 1e-6, edge_r=ops.edge_reweight_r)):
+        assert torch.equal(a, b)
+
+
+def test_wrappers_take_plain_version_only_on_cpu():
+    """No silent fallback: a tensor on a device other than CPU or CUDA, or
+    tensors spread over devices, raise instead of running the plain
+    version; CPU calls never count as kernel launches."""
+    ops.reset_launches()
+    meta = [torch.empty((4, 2), dtype=torch.int32, device="meta"),
+            torch.empty((4, 2), device="meta"), torch.empty(4, device="meta"),
+            torch.empty(4, device="meta")]
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        ops.ell_spmv(*meta)
+    cpu = torch.zeros(4)
+    with pytest.raises(ValueError, match="several devices"):
+        ops.block_diag_matvec(torch.zeros((4, 1, 1), device="meta"),
+                              cpu[:, None])
+    ops.ell_spmv(torch.zeros((4, 2), dtype=torch.int32), torch.zeros((4, 2)),
+                 cpu, cpu)
+    assert ops.launches == {"ell_spmv": 0, "fused_ell_sweep": 0,
+                            "block_diag_matvec": 0}
+
+
+def test_build_names_each_library_by_its_source(monkeypatch, tmp_path):
+    """A kernel library's file name hashes its source and flags (an edited
+    source never loads a stale build); a missing nvcc raises."""
+    paths = {name: build.library_path(name) for name in build.SOURCES}
+    assert len(set(paths.values())) == len(paths)
+    for name, path in paths.items():
+        assert path.parent == build.BUILD_DIR
+        assert path.name.startswith(f"lib{name}_") and path.suffix == ".so"
+        assert (build.CSRC / build.SOURCES[name]).exists()
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.nvcc_path()
