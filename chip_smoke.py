@@ -2,10 +2,11 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py [--side 96] [--n-irls 50] [--seed 0]
+                          [--frame 1024] [--ell-side 48]
 
 Phases (any failure raises and exits non-zero; there is no CPU path):
 
-1. Build the three CUDA kernels from ``src/repro_torch/kernels/csrc`` with
+1. Build the four CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    nvcc for sm_90a (one nvcc per source, all started together) and print
    the card's name and power limit.
 2. Make the full-width instance: a 26-connected ``side``³ segmentation grid
@@ -30,6 +31,39 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    within two steps of the kernel path's.
 6. Two-level rounding at side 32 (kernel path vs plain path, rel 1e-6) and
    at side 16 against the exact min cut of the host Dinic (rel 1e-6).
+7. ``edge_reweight`` alone at the COO shapes of the 96³ instance, one
+   instance (B = 1) and a serving batch (B = 8), with a few endpoints out of
+   range (they gather 0), held entry by entry against the plain version
+   (bit for bit) and timed beside it and its bound.
+8. The serving path: ``MinCutServer`` (the server's default config with
+   ``use_pallas``, sweep rounding, 4 workers, idle flush, ``max_batch`` 8)
+   serves two tenants at full width — the 96³ volume and a 1024×1024
+   4-connected segmentation frame — in bursts of 8 drifting weight
+   assignments (``launch/mincut_serve.py``'s random walk, drift 0.05), the
+   first burst of each tenant cold and the later ones warm.  It runs twice.
+   The measured run keeps PyTorch's defaults, as a user runs the server:
+   its times and memory are the phase's numbers, and its cuts stay within
+   1e-2 of the plain path's (``index_add_`` sums with atomics in no fixed
+   order, on both paths, and the adaptive schedule amplifies that up to its
+   ``irls_tol``).  The checked run serves the same traffic with
+   ``torch.use_deterministic_algorithms(True)``: every served cut must
+   equal, within rel 1e-4, the cut of the same batch solved through
+   ``solve_batch`` on the plain path on the card, with the same warm start,
+   and one lane of a batch of 8 must give the cut of its weights solved
+   alone (rel 1e-4).  In both runs the launch counters are set to 0 just
+   before and read just after: ``edge_reweight`` must have launched once per
+   IRLS iteration of every batch, and no other kernel.  A small server with
+   two-level rounding runs at side 32 in the checked run.  Last, one
+   batch of the volume is traced with ``torch.profiler``: its kernels'
+   device time by name and the device's busy share.
+9. The batched ELL path: ``solve_batch`` on B = 4 lanes of a 48³ grid in the
+   kernel config of phase 4 (block plan of 8×8×8 boxes, the default fixed
+   schedule), with the batched ``ell_spmv``/``fused_ell_sweep`` held against
+   their plain versions first; the launches must be the fixed schedule's,
+   and the cuts the plain path's within rel 1e-4 (the schedule's CG steps
+   past convergence amplify the kernels' other summation orders into cut
+   gaps of a few 1e-5; fewer IRLS iterations leave the voltages less
+   polarized and the gaps larger).
 
 TF32 is switched off for matmuls and cuDNN, so every float32 product is a
 full float32 product.  The last two lines of standard output are the
@@ -61,7 +95,14 @@ KERNELS = {
                         "src/repro/kernels/edge_reweight.py:111"),
     "block_diag_matvec": ("src/repro_torch/kernels/csrc/block_diag_matvec.cu",
                           "src/repro/kernels/block_diag_matmul.py:41"),
+    "edge_reweight": ("src/repro_torch/kernels/csrc/edge_reweight.cu",
+                      "src/repro/kernels/edge_reweight.py:59"),
 }
+# bursts of 8 requests per serving tenant (the first cold, the rest warm)
+SERVE_ROUNDS = 2
+# the path whose launches the kernels line reports for each kernel
+LAUNCH_PATH = {"ell_spmv": "main", "fused_ell_sweep": "main",
+               "block_diag_matvec": "main", "edge_reweight": "serve"}
 
 
 def log(*args):
@@ -263,11 +304,459 @@ def kernels_alone(prob, inst, cfg, seed: int):
     return out
 
 
+def kernel_entry(err, shape, fn, plain, reps, plain_reps, bound_ms):
+    """One kernel's record: its error and shape, then the kernel and its
+    plain version timed on the same inputs, beside its bound."""
+    return dict(max_abs_err=err, shape=list(shape), ms=time_ms(fn, reps),
+                plain_ms=time_ms(plain, plain_reps), library_ms=None,
+                bound_ms=bound_ms[0], bound_by=bound_ms[1])
+
+
+def edge_reweight_alone(prob, eps: float, seed: int):
+    """Phase 7: ``edge_reweight`` at the COO shapes of the instance, for one
+    instance and for a serving batch of 8 lanes."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    g = prob.device_graph(torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    n, m = g.n, g.m
+    # a few endpoints out of range: the kernel gathers 0 there, as the TPU
+    # kernel's fill_value=0 does; the plain version reads an appended 0
+    src, dst = g.src.clone(), g.dst.clone()
+    bad = torch.randperm(m, generator=gen, device=dev)[:16]
+    src[bad[:8]] = n + torch.arange(8, dtype=torch.int32, device=dev)
+    dst[bad[8:]] = -1 - torch.arange(8, dtype=torch.int32, device=dev)
+
+    def in_range(i):
+        return torch.where((i >= 0) & (i < n), i, torch.full_like(i, n))
+
+    out = {}
+    for lanes in (1, 8):
+        lead = () if lanes == 1 else (lanes,)
+        c = g.c * (0.8 + 0.4 * torch.rand(lead + (m,), generator=gen,
+                                          device=dev))
+        v = torch.rand(lead + (n,), generator=gen, device=dev)
+        r = ops.edge_reweight_r(src, dst, c, v, eps)
+        v_pad = torch.cat([v, torch.zeros_like(v[..., :1])], dim=-1)
+        want = ref.edge_reweight_ref(in_range(src), in_range(dst), c, v_pad,
+                                     eps)
+        # bit for bit (tolerance 0 of each entry): the kernel rounds each
+        # operation once, in the plain version's order
+        err = check_close(f"edge_reweight B={lanes}", [r], [want], 0.0)
+        del want, v_pad
+        # timed on the instance's own indices, the main path's
+        args = (g.src, g.dst, c, v, eps)
+        # ~7 flops, a square root and a division per edge and lane
+        out[lanes] = kernel_entry(
+            err, c.shape, lambda: ops.edge_reweight_r(*args),
+            lambda: ref.edge_reweight_ref(*args), 50, 10,
+            bound(nbytes(g.src, g.dst, c, v, r), 7 * c.numel()))
+        del c, v, r, args
+    torch.cuda.empty_cache()
+    for lanes, r in out.items():
+        log(f"  edge_reweight {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library null, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return out
+
+
+def batched_ell_kernels(prob, lanes: int, eps: float, seed: int):
+    """The batched ``ell_spmv`` and ``fused_ell_sweep``: ``lanes`` lanes of
+    values over the instance's one ELL plan, against their plain versions,
+    at the tolerances of phase 3."""
+    import torch
+
+    from repro_torch.core import laplacian as lap
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    plan = prob.ell_plan(dev)
+    g = prob.device_graph(torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    cols = plan.cols
+    n, k = cols.shape
+    valid = torch.zeros((n, k), dtype=torch.bool, device=dev)
+    valid[plan.slot_rows, plan.slot_cols] = True
+    out = {}
+    vals = -torch.rand((lanes, n, k), generator=gen, device=dev) * valid
+    diag = torch.rand((lanes, n), generator=gen, device=dev) + (-vals).sum(-1)
+    v = torch.rand((lanes, n), generator=gen, device=dev)
+    y = ops.ell_spmv(cols, vals, diag, v)
+    scale = [ref.ell_spmv_ref(cols, vals.abs(), diag.abs(), v.abs())]
+    err = check_close(f"ell_spmv B={lanes}", [y],
+                      [ref.ell_spmv_ref(cols, vals, diag, v)], 1e-5, scale)
+    nnz = int(valid.sum())
+    out["ell_spmv"] = kernel_entry(
+        err, vals.shape, lambda: ops.ell_spmv(cols, vals, diag, v),
+        lambda: ref.ell_spmv_ref(cols, vals, diag, v), 100, 20,
+        bound(nbytes(cols, vals, diag, v, y), lanes * (2 * nnz + 2 * n)))
+    del vals, diag, y, scale
+    c = g.c * (0.8 + 0.4 * torch.rand((lanes, g.m), generator=gen, device=dev))
+    c_ell = lap.ell_edge_weights(plan, c)
+    c_s = g.c_s.expand(lanes, n).contiguous()
+    c_t = g.c_t.expand(lanes, n).contiguous()
+    args = (cols, c_ell, c_s, c_t, v, eps)
+    got = ops.fused_ell_sweep(*args)
+    err = check_close(f"fused_ell_sweep B={lanes}", got,
+                      ref.fused_ell_sweep_ref(*args), 3e-5)
+    out["fused_ell_sweep"] = kernel_entry(
+        err, c_ell.shape, lambda: ops.fused_ell_sweep(*args),
+        lambda: ref.fused_ell_sweep_ref(*args), 50, 10,
+        bound(nbytes(cols, c_ell, c_s, c_t, v, *got),
+              lanes * (10 * nnz + 12 * n)))
+    del c, c_ell, c_s, c_t, v, got, args
+    torch.cuda.empty_cache()
+    for name, r in out.items():
+        log(f"  {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+    return out
+
+
+def frame_instance(side: int, seed: int):
+    """A side×side 4-connected image-segmentation frame (grid_2d)."""
+    from repro_torch.graphs import generators as gen
+
+    g = gen.grid_2d(side, side, seed=seed)
+    return gen.segmentation_instance(g, (side, side), seed=seed + 1)
+
+
+def serve_traffic(rng, base, scale: float, burst: int, drift: float):
+    """``burst`` weight assignments of one tenant: launch/mincut_serve.py's
+    multiplicative random walk (a global scale of the edge weights, one
+    lognormal step per request).  Returns (weights, the walk's new scale)."""
+    import numpy as np
+
+    from repro_torch.core import Weights
+
+    ws = []
+    for _ in range(burst):
+        scale *= float(np.exp(rng.normal(0.0, drift)))
+        ws.append(Weights(np.asarray(base.graph.weight) * scale,
+                          np.asarray(base.s_weight),
+                          np.asarray(base.t_weight)))
+    return ws, scale
+
+
+def server_cfg(use_pallas: bool):
+    """``MinCutServer``'s default config, on the kernel or the plain path."""
+    import inspect
+
+    from repro_torch.serve import MinCutServer
+
+    return dataclasses.replace(
+        inspect.signature(MinCutServer).parameters["cfg"].default,
+        use_pallas=use_pallas)
+
+
+def serve_run(tenants, rounds: int, seed: int, rounding: str = "sweep",
+              burst: int = 8, drift: float = 0.05):
+    """Serve ``rounds`` bursts of ``burst`` requests per tenant through a
+    fresh ``MinCutServer`` on the card (the default config with
+    ``use_pallas``), each round's bursts in flight together; launch counters
+    set to 0 just before and read just after.  Checks that every request
+    completed in full batches, that ``edge_reweight`` launched once per IRLS
+    iteration of every batch and no other kernel launched, that every
+    tenant's later bursts warm-started, and that the voltages are finite."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serve import MinCutServer
+
+    cfg = server_cfg(True)
+    rng = np.random.default_rng(seed)
+    scales = {name: 1.0 for name in tenants}
+    sent = {name: [] for name in tenants}       # per round: weights
+    served = {name: [] for name in tenants}     # per round: results
+    with MinCutServer(cfg=cfg, rounding=rounding, device="cuda") as srv:
+        keys = {name: srv.register(inst) for name, inst in tenants.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            futs = {}
+            for name, inst in tenants.items():
+                ws, scales[name] = serve_traffic(rng, inst, scales[name],
+                                                 burst, drift)
+                sent[name].append(ws)
+                futs[name] = srv.submit_many(keys[name], ws, tenant=name)
+            for name, fs in futs.items():
+                served[name].append([f.result(timeout=900) for f in fs])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.launches)
+        peak = torch.cuda.max_memory_allocated()
+        stats = srv.stats()
+        sessions = {name: srv.cache.get(key) for name, key in keys.items()}
+    n_req = rounds * burst * len(tenants)
+    want = stats["batches"] * cfg.n_irls
+    log(f"[serve] {stats['completed']} of {n_req} requests in {wall:.2f} s; "
+        f"batches {stats['batch_sizes']}, flush reasons "
+        f"{stats['flush_reasons']}; warm {stats['warm']}; launches "
+        f"{launches}, edge_reweight expected {want} ({stats['batches']} "
+        f"batches × n_irls {cfg.n_irls})")
+    if stats["completed"] != n_req or stats["failed"]:
+        raise AssertionError(f"served {stats['completed']} of {n_req}")
+    if stats["batch_sizes"] != [burst] * (rounds * len(tenants)):
+        raise AssertionError(f"batches {stats['batch_sizes']}: the bursts "
+                             f"did not form full batches")
+    if launches != {"ell_spmv": 0, "fused_ell_sweep": 0,
+                    "block_diag_matvec": 0, "edge_reweight": want}:
+        raise AssertionError(f"serving launches {launches}, expected "
+                             f"edge_reweight {want} and nothing else")
+    if stats["warm"]["hits"] != (rounds - 1) * len(tenants):
+        raise AssertionError(f"warm starts {stats['warm']}")
+    for name in tenants:
+        for rs in served[name]:
+            for r in rs:
+                if not np.isfinite(r.voltages).all():
+                    raise AssertionError(f"{name}: non-finite voltages")
+    return dict(sent=sent, served=served, wall=wall, launches=launches,
+                peak=peak, stats=stats, sessions=sessions)
+
+
+def against_plain(run, rounding: str = "sweep"):
+    """Every served batch again through ``solve_batch`` on the plain path on
+    the card, same lanes, same warm start (the tenant's previous burst's
+    last voltages, as the server's warm store holds them).  Returns
+    {tenant: (max rel cut gap, PCG steps served, PCG steps plain)}."""
+    out = {}
+    for name, sess in run["sessions"].items():
+        gaps, spend_k, spend_p = [], 0, 0
+        for rnd, ws in enumerate(run["sent"][name]):
+            prev = run["served"][name][rnd - 1] if rnd else None
+            plain = sess.solve_batch(
+                ws, rounding=rounding, cfg=server_cfg(False), pad_to=len(ws),
+                warm_from=None if prev is None else [prev[-1].voltages] * len(ws))
+            for got, ref in zip(run["served"][name][rnd], plain):
+                gaps.append(abs(got.cut_value - ref.cut_value)
+                            / abs(ref.cut_value))
+                spend_k += int(got.pcg_iters.sum())
+                spend_p += int(ref.pcg_iters.sum())
+        out[name] = (max(gaps), spend_k, spend_p)
+    return out
+
+
+def serving_phase(tenants, rounds: int, seed: int):
+    """Phase 8: a measured serving run with the card's default (atomic)
+    scatters, then a checked run of the same traffic with deterministic
+    algorithms, held against the plain path and a solo solve."""
+    import numpy as np
+    import torch
+
+    # -- the measured run: PyTorch's defaults, as a user runs the server
+    meas = serve_run(tenants, rounds, seed)
+    results = [r for name in tenants for rs in meas["served"][name] for r in rs]
+    tm = {k: [r.timings[k] for r in results]
+          for k in ("queue", "irls", "irls_wall", "rounding", "total")}
+    stats = meas["stats"]
+    log(f"[serve] measured: {stats['completed'] / meas['wall']:.2f} solves/s "
+        f"over the run (server window {stats['solves_per_sec']:.2f}/s); "
+        f"peak device memory {meas['peak'] / 2**30:.2f} GiB")
+    for k, xs in tm.items():
+        log(f"[serve] per-request {k} s: median {float(np.median(xs)):.3f}, "
+            f"max {max(xs):.3f}")
+    # index_add_ sums with atomics, in no fixed order, on both paths, and
+    # the adaptive schedule's stops amplify roundoff up to its own irls_tol
+    # of 1e-3: a plain run disagrees with itself by ~1e-3 here.  This
+    # comparison bounds the disagreement (10 × irls_tol); the exact one is
+    # the checked run's.
+    spread = against_plain(meas)
+    for name, (gap, sk, sp) in spread.items():
+        log(f"[serve] measured {name}: cuts vs plain path (both with atomic "
+            f"scatters) max rel {gap:.3e} (bound 1e-2); PCG steps served "
+            f"{sk}, plain {sp}")
+        if not gap <= 1e-2:
+            raise AssertionError(f"{name}: measured served cut vs plain rel "
+                                 f"{gap}")
+
+    # -- the checked run: every scatter deterministic, so the served batch
+    # and its plain twin differ only where the kernel differs from its
+    # plain version
+    torch.use_deterministic_algorithms(True)
+    try:
+        chk = serve_run(tenants, rounds, seed)
+        checks = {}
+        for name, (gap, sk, sp) in against_plain(chk).items():
+            sess = chk["sessions"][name]
+            j = 3          # lane 3 of the first (cold) batch, solved alone
+            lane = chk["served"][name][0][j]
+            solo = sess.solve_batch([chk["sent"][name][0][j]], rounding="sweep",
+                                    cfg=server_cfg(True))[0]
+            solo_gap = abs(solo.cut_value - lane.cut_value) / abs(lane.cut_value)
+            log(f"[serve] checked {name}: cuts vs plain path max rel "
+                f"{gap:.3e} (tolerance 1e-4); PCG steps served {sk}, plain "
+                f"{sp}; lane {j} of a batch of 8 vs alone: cut "
+                f"{lane.cut_value!r} vs {solo.cut_value!r}, rel "
+                f"{solo_gap:.3e} (tolerance 1e-4)")
+            if not (gap <= 1e-4 and solo_gap <= 1e-4):
+                raise AssertionError(f"{name}: served vs plain rel {gap}, "
+                                     f"co-batched vs solo rel {solo_gap}")
+            checks[name] = dict(max_rel_vs_plain=gap, solo_rel=solo_gap,
+                                pcg_steps_served=sk, pcg_steps_plain=sp)
+        two_level = two_level_server(seed)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    # the measured run's first volume batch again, traced
+    name = next(iter(tenants))
+    prof = profile_batch(meas["sessions"][name], meas["sent"][name][0])
+    return dict(wall_s=meas["wall"], launches=meas["launches"],
+                checked_launches=chk["launches"], peak_bytes=meas["peak"],
+                stats={k: stats[k] for k in ("completed", "batches",
+                                             "batch_sizes", "flush_reasons",
+                                             "warm", "solves_per_sec")},
+                timings={k: dict(median=float(np.median(v)), max=max(v))
+                         for k, v in tm.items()},
+                measured_vs_plain={k: v[0] for k, v in spread.items()},
+                checked=checks, two_level=two_level, profile=prof,
+                checked_wall_s=chk["wall"],
+                cfg=dataclasses.asdict(server_cfg(True)))
+
+
+def profile_batch(sess, ws, top: int = 10):
+    """Where one served batch's time goes: ``solve_batch`` of ``ws`` (no
+    rounding) under ``torch.profiler`` on the card.  Returns the wall, the
+    summed device time of the kernels and copies (the device's busy share
+    of the wall; one stream, so they do not overlap) and the kernels that
+    took the most device time.  A trace that holds no device time is reported as
+    such and not read further."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        sess.solve_batch(ws, rounding=None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    # the device's own events (kernels and copies), not the operators that
+    # launched them, whose device time repeats their kernels'
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == DeviceType.CUDA
+              and dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in events) / 1e6
+    host = {e.key: e for e in prof.key_averages()}
+    syncs = sum(host[k].count for k in host
+                if k in ("cudaStreamSynchronize", "cudaMemcpyAsync"))
+    rows = sorted(events, key=dev_us, reverse=True)[:top]
+    out = dict(wall_s=wall, device_busy_s=busy,
+               busy_share=busy / wall if wall > 0 else float("nan"),
+               host_syncs_and_copies=syncs,
+               top=[dict(name=e.key[:90], device_ms=dev_us(e) / 1e3,
+                         count=e.count) for e in rows])
+    if busy == 0:
+        log("[profile] the trace holds no device time; not read further")
+        return out
+    log(f"[profile] one batch of {len(ws)}: wall {wall:.2f} s, kernels and "
+        f"copies {busy:.2f} s on the device (busy share {busy / wall:.3f}, idle "
+        f"{1 - busy / wall:.3f}); cudaStreamSynchronize + cudaMemcpyAsync "
+        f"calls {syncs}")
+    for r in out["top"]:
+        log(f"[profile]   {r['device_ms']:10.2f} ms  ×{r['count']:6d}  "
+            f"{r['name']}")
+    return out
+
+
+def two_level_server(seed: int, side: int = 32, burst: int = 2):
+    """A small server with two-level rounding (its host Dinic on the
+    contour) against the plain path's two-level cuts."""
+    inst = segmentation_grid(side, seed)
+    run = serve_run({"grid": inst}, 1, seed, rounding="two_level",
+                    burst=burst)
+    gap, _, _ = against_plain(run, rounding="two_level")["grid"]
+    got = run["served"]["grid"][0]
+    log(f"[serve two_level] side {side}: cuts {[r.cut_value for r in got]}, "
+        f"vs plain path max rel {gap:.2e} (tolerance 1e-4)")
+    if not (gap <= 1e-4 and all(r.cut.meta["method"] == "two_level"
+                                for r in got)):
+        raise AssertionError(f"two-level server: rel {gap}")
+    return dict(cuts=[r.cut_value for r in got], rel_vs_plain=gap)
+
+
+def batched_ell_phase(side: int, lanes: int, seed: int):
+    """Phase 9: ``solve_batch`` in the kernel config on a ``side``³ grid,
+    default schedule (T = 50 IRLS iterations of 50 CG steps)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import IRLSConfig, MinCutSession, Problem, Weights
+    from repro_torch.kernels import ops
+
+    inst = segmentation_grid(side, seed)
+    labels, n_blocks = box_labels(side)
+    cfg = IRLSConfig(layout="ell", fuse_edge_sweep=True, use_pallas=True,
+                     precond="block_jacobi", explicit_block_inverse=True,
+                     n_blocks=n_blocks)
+    n_irls = cfg.n_irls
+    prob = Problem.build(inst, n_blocks=n_blocks, labels=labels)
+    sess = MinCutSession(prob, cfg, backend="scanned", device="cuda")
+    rng = np.random.default_rng(seed + 3)
+    ws = [Weights(np.asarray(inst.graph.weight)
+                  * rng.uniform(0.8, 1.2, inst.graph.m),
+                  np.asarray(inst.s_weight), np.asarray(inst.t_weight))
+          for _ in range(lanes)]
+    kern = batched_ell_kernels(prob, lanes, cfg.eps, seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t = time.perf_counter()
+    res = sess.solve_batch(ws, rounding="sweep")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    # the fixed schedule: n_irls sweeps; every PCG call (the cold initial
+    # one too) one matvec and one preconditioner apply for r0, then one of
+    # each per step
+    steps = (n_irls + 1) * (cfg.pcg_max_iters + 1)
+    want = {"ell_spmv": steps, "fused_ell_sweep": n_irls,
+            "block_diag_matvec": steps, "edge_reweight": 0}
+    log(f"[batched ell] side {side}, B={lanes}, P={n_blocks}: solve_batch "
+        f"{wall:.2f} s; launches {launches} (expected {want}); peak device "
+        f"memory {peak / 2**30:.2f} GiB")
+    if launches != want:
+        raise AssertionError(f"batched ELL launches {launches} != {want}")
+    t = time.perf_counter()
+    plain = sess.solve_batch(ws, rounding="sweep",
+                             cfg=dataclasses.replace(cfg, use_pallas=False))
+    t_plain = time.perf_counter() - t
+    rels = [abs(a.cut_value - b.cut_value) / abs(b.cut_value)
+            for a, b in zip(res, plain)]
+    gap = max(int(np.abs(a.pcg_iters - b.pcg_iters).max())
+              for a, b in zip(res, plain))
+    log(f"[batched ell] cuts {[r.cut_value for r in res]} vs plain "
+        f"{[r.cut_value for r in plain]}: max rel {max(rels):.3e} (tolerance "
+        f"1e-4), PCG gap {gap} (tolerance 2); plain {t_plain:.2f} s")
+    if not (max(rels) <= 1e-4 and gap <= 2
+            and all(np.isfinite(r.voltages).all() for r in res)):
+        raise AssertionError(f"batched ELL vs plain: rel {max(rels)}, "
+                             f"PCG gap {gap}")
+    return dict(kernels=kern, wall_s=wall, plain_s=t_plain,
+                launches=launches, peak_bytes=peak, max_rel=max(rels),
+                pcg_gap=gap)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--side", type=int, default=96)
     ap.add_argument("--n-irls", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--frame", type=int, default=1024,
+                    help="side of the serving phase's 2-D frame tenant")
+    ap.add_argument("--ell-side", type=int, default=48,
+                    help="side of the batched ELL phase's grid")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -351,7 +840,7 @@ def main(argv=None) -> int:
     cut, diag, tm = res.cut, res.diagnostics, res.timings
     steps = sum(1 + it for it in diag.pcg_iters)   # r0 matvec + one per step
     want = {"fused_ell_sweep": args.n_irls, "ell_spmv": steps,
-            "block_diag_matvec": steps}
+            "block_diag_matvec": steps, "edge_reweight": 0}
     log(f"[main] solve {wall_s:.2f} s: Problem.build and connectivity check "
         f"{wall_s - tm['total']:.2f} s, setup {tm['setup']:.2f} s, IRLS "
         f"{tm['irls']:.2f} s, rounding {tm['rounding']:.2f} s")
@@ -426,9 +915,40 @@ def main(argv=None) -> int:
                            contour=cut_k.meta["coarse_n"], seconds=t_k)
     report["two_level"] = small
 
+    # -- 7. edge_reweight alone at the COO shapes ------------------------------
+    prob_coo = Problem.build(inst, n_blocks=1)
+    er = edge_reweight_alone(prob_coo, cfg.eps, args.seed)
+    report["edge_reweight"] = {f"B={b}": r for b, r in er.items()}
+    kern["edge_reweight"] = er[8]          # the serving batch's shape
+    del prob_coo
+    torch.cuda.empty_cache()
+
+    # -- 8. the serving path -------------------------------------------------
+    t = time.perf_counter()
+    frame = frame_instance(args.frame, args.seed + 2)
+    log(f"[serve] tenants: volume n={inst.n} m={inst.graph.m}, frame "
+        f"{args.frame}² n={frame.n} m={frame.graph.m} (made in "
+        f"{time.perf_counter() - t:.1f} s)")
+    serve = serving_phase({"volume": inst, "frame": frame}, SERVE_ROUNDS,
+                          args.seed)
+    del frame
+    torch.cuda.empty_cache()
+    report["serve"] = serve
+
+    # -- 9. the batched ELL path ---------------------------------------------
+    report["batched_ell"] = batched_ell_phase(args.ell_side, 4, args.seed)
+    torch.cuda.empty_cache()
+
+    path_launches = {"main": launches, "serve": serve["launches"],
+                     "batched_ell": report["batched_ell"]["launches"]}
+    for name in KERNELS:
+        if path_launches[LAUNCH_PATH[name]][name] == 0:
+            raise AssertionError(f"{name} was not launched on its path")
+    log(f"[launches] per path: {path_launches}")
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
-         "replaces": KERNELS[name][1], "launches": launches[name],
+         "replaces": KERNELS[name][1],
+         "launches": path_launches[LAUNCH_PATH[name]][name],
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
          "plain_ms": kern[name]["plain_ms"],
          "bound_ms": kern[name]["bound_ms"],
@@ -436,6 +956,7 @@ def main(argv=None) -> int:
          "library_ms": kern[name]["library_ms"]}
         for name in KERNELS]}
     report["kernels"] = kern
+    report["launches_by_path"] = path_launches
     report["seconds"] = time.perf_counter() - t_start
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     log(f"[done] {report['seconds']:.1f} s")

@@ -1,4 +1,4 @@
-"""IRLS adaptive-schedule state machine (early exit), on host scalars.
+"""IRLS adaptive-schedule state machine (early exit).
 
 * **outer convergence** — the relative change of the fractional cut value
   ``‖CBx‖₁`` must stay below ``cfg.irls_tol`` for ``cfg.irls_patience``
@@ -11,9 +11,11 @@
   PCG exits at entry).
 
 The host driver reads one fractional cut, residual and iteration count per
-IRLS iteration, so the state lives on the CPU as 0-d float32 tensors: the
+IRLS iteration, so its state lives on the CPU as 0-d float32 tensors: the
 same float32 arithmetic as the JAX package's state machine, with no device
-round trip.
+round trip.  The scanned driver keeps one state per lane of its batch, as
+(B,) tensors on the batch's device, where the JAX package vmaps the same
+elementwise code.
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ import torch
 
 
 class AdaptiveState(NamedTuple):
-    """Early-exit state carried across IRLS iterations (0-d CPU tensors).
+    """Early-exit state carried across IRLS iterations (0-d CPU tensors on
+    the host driver, (B,) tensors per lane on the scanned driver).
 
     frac  : f32   last fractional-cut reading ‖CBx‖₁
     tol   : f32   current inner (PCG) tolerance
@@ -52,15 +55,19 @@ def initial_tol(cfg, tight: float) -> float:
 
 
 def init_state(cfg, frac0, tight: float) -> AdaptiveState:
-    """State after the initial WLS solve produced ``frac0 = ‖CBx⁰‖₁``."""
-    return AdaptiveState(frac=_f32(frac0), tol=_f32(initial_tol(cfg, tight)),
-                         small=torch.tensor(0, dtype=torch.int32),
-                         done=torch.tensor(False))
+    """State after the initial WLS solve produced ``frac0 = ‖CBx⁰‖₁`` (a
+    host scalar, or one reading per lane)."""
+    frac = _f32(frac0)
+    return AdaptiveState(frac=frac,
+                         tol=torch.full_like(frac, initial_tol(cfg, tight)),
+                         small=torch.zeros_like(frac, dtype=torch.int32),
+                         done=torch.zeros_like(frac, dtype=torch.bool))
 
 
 def inner_tol(state: AdaptiveState) -> torch.Tensor:
     """Tolerance for the NEXT inner solve: ∞ once done (a no-op solve)."""
-    return torch.where(state.done, _f32(float("inf")), state.tol)
+    return torch.where(state.done, torch.full_like(state.tol, float("inf")),
+                       state.tol)
 
 
 def advance(cfg, state: AdaptiveState, frac, rel_res, iters,

@@ -15,8 +15,20 @@ kernels/csrc/fused_ell_sweep.cu under ``use_pallas``, the plain torch sweep
 otherwise) or the separate passes (reweight, value fill, rhs).  Under
 ``use_pallas`` the ELL matvec is the CUDA kernel kernels/csrc/ell_spmv.cu
 and the explicit-inverse block-Jacobi apply is
-kernels/csrc/block_diag_matvec.cu.  ``use_pallas`` keeps the JAX package's
+kernels/csrc/block_diag_matvec.cu; on the unfused path the COO reweight is
+kernels/csrc/edge_reweight.cu.  ``use_pallas`` keeps the JAX package's
 name, so one kwargs dict builds the config of both packages.
+
+Two drivers:
+
+* ``run_host_loop`` — one IRLS iteration per ``_Stepper`` call, PCG stopping
+  on tolerance, full diagnostics (the ``"host"`` backend).
+* ``make_scanned_program`` — the JAX package's scanned program: all T
+  iterations on a fixed or convergence-masked schedule, on one instance or
+  on a batch of B same-topology lanes (the ``"scanned"`` backend and
+  ``MinCutSession.solve_batch``).  Where the JAX package vmaps a
+  ``lax.scan``, the port writes the lane dimension out and runs the T
+  iterations as a host loop.
 """
 from __future__ import annotations
 
@@ -32,7 +44,7 @@ from . import laplacian as lap
 from . import precond as pc
 from ..kernels import ops as kops
 from .incidence import DeviceGraph, l1_objective, smoothed_objective
-from .pcg import pcg
+from .pcg import pcg, pcg_fixed_iters, pcg_masked
 
 
 @dataclasses.dataclass(frozen=True)
@@ -284,3 +296,130 @@ def solve(instance, cfg: IRLSConfig = IRLSConfig(),
                             collect_voltages=collect_voltages)
     diag.setup_time = setup_time
     return prob.to_original(v.cpu().numpy()), diag
+
+
+# ---------------------------------------------------------------------------
+# Scanned driver (fixed or convergence-masked schedule), one instance or a
+# batch of lanes
+# ---------------------------------------------------------------------------
+
+def _scanned_precond(cfg: IRLSConfig, rw, matvec,
+                     block_plan: Optional[pc.BlockPlan]):
+    """The scanned schedules need at least diagonal scaling: "none", and
+    block Jacobi without a plan, run point Jacobi, as in the JAX package."""
+    name = cfg.precond
+    if name == "none" or (name == "block_jacobi" and block_plan is None):
+        name = "jacobi"
+    return pc.make_preconditioner(name, rw, matvec, cfg, block_plan)
+
+
+def make_scanned_program(src, dst, cfg: IRLSConfig,
+                         block_plan: Optional[pc.BlockPlan] = None,
+                         ell_plan: Optional[lap.EllPlan] = None,
+                         warm: bool = False, ext_stage: bool = False):
+    """Build the weight-parameterized scanned IRLS program.
+
+    Returns ``run(c, c_s, c_t) → (v, rels, iters)`` with the topology
+    (src/dst and plans) closed over.  ``c`` may be (m,) or a batch (B, m),
+    with ``c_s``/``c_t`` (n,) or (B, n); ``v`` then has the shape of
+    ``c_s`` and ``rels``/``iters`` are (T,) or (B, T): per IRLS iteration the
+    final PCG relative residual and the PCG iterations spent (0 once a lane
+    is done).  ``warm=True`` builds ``run(c, c_s, c_t, v0)``, which skips
+    the cold initial WLS (W⁰ = C) and reweights from the caller's voltages.
+
+    Schedules, as in the JAX package:
+
+    * fixed (``irls_tol == 0`` and not ``adaptive_tol``): T iterations of
+      ``pcg_fixed_iters`` with ``pcg_max_iters`` steps each, no host sync.
+    * adaptive: T iterations of the batched ``pcg_masked`` under the
+      per-lane state machine of core/adaptive.py.  A done lane's inner
+      tolerance is ∞, so its PCG takes no step and its voltages stay frozen
+      while the other lanes go on.  All T iterations run, so ``rels`` and
+      ``iters`` are full (B, T) arrays, as under ``jax.vmap``.
+
+    ``ext_stage`` (the ELL weight table staged by the caller, the delta
+    staging path) is not ported yet and raises."""
+    if ext_stage:
+        raise NotImplementedError(
+            "ext_stage (delta staging of the ELL weight table) is not "
+            "ported yet: ROADMAP queue 1, delta staging")
+    adaptive = sched.is_adaptive(cfg)
+    tight = cfg.pcg_tight_tol
+    eps_sched = [float(e) for e in eps_schedule_array(cfg)]
+
+    def system(g, c_ell, v, eps_l):
+        matvec, b, rw = _iteration_system(g, cfg, ell_plan, c_ell, v, eps_l)
+        return matvec, b, _scanned_precond(cfg, rw, matvec, block_plan)
+
+    def initial(g):
+        rw0 = lap.initial_weights(g)
+        matvec0 = _make_matvec(g, rw0, cfg, ell_plan)
+        apply_M0 = _scanned_precond(cfg, rw0, matvec0, block_plan)
+        if adaptive:
+            return pcg_masked(matvec0, lap.rhs(rw0), precond=apply_M0,
+                              tol=sched.initial_tol(cfg, tight),
+                              max_iters=cfg.pcg_max_iters).x
+        return pcg_fixed_iters(matvec0, lap.rhs(rw0), precond=apply_M0,
+                               n_iters=cfg.pcg_max_iters,
+                               record_history=False).x
+
+    def fixed_step(g, c_ell, v, eps_l):
+        matvec, b, apply_M = system(g, c_ell, v, eps_l)
+        x0 = v if cfg.warm_start else torch.zeros_like(v)
+        res = pcg_fixed_iters(matvec, b, x0=x0, precond=apply_M,
+                              n_iters=cfg.pcg_max_iters, record_history=False)
+        return res.x, res.rel_res
+
+    def masked_step(g, c_ell, v, eps_l, st):
+        matvec, b, apply_M = system(g, c_ell, v, eps_l)
+        x0 = v if cfg.warm_start else torch.zeros_like(v)
+        # a done lane's PCG is a no-op, not a discarded solve: tol=∞
+        res = pcg_masked(matvec, b, x0=x0, precond=apply_M,
+                         tol=sched.inner_tol(st), max_iters=cfg.pcg_max_iters)
+        # done lanes freeze while the other lanes of the batch go on
+        v_new = torch.where(st.done[..., None], v, res.x)
+        spent = torch.where(st.done, 0, res.iters)
+        st_new = sched.advance(cfg, st, l1_objective(g, v_new), res.rel_res,
+                               res.iters, tight)
+        return v_new, st_new, res.rel_res, spent
+
+    def _run(c, c_s, c_t, v_warm):
+        g = DeviceGraph(src=src, dst=dst, c=c, c_s=c_s, c_t=c_t)
+        # the slot-major ELL weights, staged ONCE per solve
+        c_ell = (lap.ell_edge_weights(ell_plan, c) if _fused(cfg, ell_plan)
+                 else None)
+        v = v_warm.to(c.dtype) if warm else initial(g)
+        rels, iters = [], []
+        if not adaptive:
+            for eps_l in eps_sched:
+                v, rel = fixed_step(g, c_ell, v, eps_l)
+                rels.append(rel)
+            rels = torch.stack(rels, dim=-1)
+            return v, rels, torch.full(rels.shape, cfg.pcg_max_iters,
+                                       dtype=torch.int32, device=rels.device)
+        # seeded from v0's own fractional cut: the cold-start behaviour, and
+        # a converged warm start freezes after irls_patience iterations
+        st = sched.init_state(cfg, l1_objective(g, v), tight)
+        for eps_l in eps_sched:
+            v, st, rel, spent = masked_step(g, c_ell, v, eps_l, st)
+            rels.append(rel)
+            iters.append(spent)
+        return v, torch.stack(rels, dim=-1), torch.stack(iters, dim=-1)
+
+    if warm:
+        def run(c, c_s, c_t, v0):
+            return _run(c, c_s, c_t, v0)
+    else:
+        def run(c, c_s, c_t):
+            return _run(c, c_s, c_t, None)
+    return run
+
+
+def solve_scanned(g: DeviceGraph, cfg: IRLSConfig,
+                  block_plan: Optional[pc.BlockPlan] = None,
+                  ell_plan: Optional[lap.EllPlan] = None):
+    """The scanned program on one device graph (single or batched weights);
+    returns ``(v, rels)``."""
+    run = make_scanned_program(g.src, g.dst, cfg, block_plan, ell_plan)
+    v, rels, _ = run(g.c, g.c_s, g.c_t)
+    return v, rels

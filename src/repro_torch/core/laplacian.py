@@ -14,6 +14,11 @@ Two matvec layouts:
   ``index_add_``.
 * **ELLPACK**: padded fixed-degree rows; the layout of the hand-written CUDA
   kernels (kernels/csrc/ell_spmv.cu, fused_ell_sweep.cu).
+
+Every operator takes one instance or a batch of B lanes that share the
+topology and the plans: per-lane tensors carry a leading lane dimension
+(``r`` (B, m), ``v`` and ``diag`` (B, n), ``vals`` (B, n, k)), and the
+scatters run along the last dimension.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ class Reweighted(NamedTuple):
     r_s  : f[n]  reweighted terminal-source conductances
     r_t  : f[n]  reweighted terminal-sink conductances
     diag : f[n]  diagonal of the reduced Laplacian L̃
+    (each with a leading lane dimension in a batch)
     """
 
     r: torch.Tensor
@@ -41,9 +47,9 @@ class Reweighted(NamedTuple):
 
 
 def _degree(g: DeviceGraph, r: torch.Tensor) -> torch.Tensor:
-    deg = torch.zeros(g.n, dtype=r.dtype, device=r.device)
-    deg.index_add_(0, g.src, r)
-    deg.index_add_(0, g.dst, r)
+    deg = torch.zeros(r.shape[:-1] + (g.n,), dtype=r.dtype, device=r.device)
+    deg.index_add_(-1, g.src, r)
+    deg.index_add_(-1, g.dst, r)
     return deg
 
 
@@ -51,7 +57,7 @@ def edge_conductances(src: torch.Tensor, dst: torch.Tensor, c: torch.Tensor,
                       v: torch.Tensor, eps) -> torch.Tensor:
     """r_e = c_e² / sqrt((c_e (v[src]−v[dst]))² + ε²) (eq. 4 on the
     non-terminal edges).  The plain version of the edge-reweight kernel."""
-    z = c * (v[src] - v[dst])
+    z = c * (v[..., src] - v[..., dst])
     return (c * c) / torch.sqrt(z * z + eps_sq(eps))
 
 
@@ -82,9 +88,9 @@ def initial_weights(g: DeviceGraph) -> Reweighted:
 
 def matvec_coo(g: DeviceGraph, rw: Reweighted, v: torch.Tensor) -> torch.Tensor:
     """Edge-scatter (COO) reduced-Laplacian matvec  y = L̃ v."""
-    flux = rw.r * (v[g.src] - v[g.dst])
-    y_src = torch.zeros_like(v).index_add_(0, g.src, flux)
-    y_dst = torch.zeros_like(v).index_add_(0, g.dst, flux)
+    flux = rw.r * (v[..., g.src] - v[..., g.dst])
+    y_src = torch.zeros_like(v).index_add_(-1, g.src, flux)
+    y_dst = torch.zeros_like(v).index_add_(-1, g.dst, flux)
     return y_src - y_dst + (rw.r_s + rw.r_t) * v
 
 
@@ -164,8 +170,9 @@ def fill_ell(plan: EllPlan, rw: Reweighted):
 
     Returns (vals[n,k], diag[n]): off-diagonals are −r_e, the diagonal is the
     full L̃ diagonal (includes terminal conductances)."""
-    vals = torch.zeros((plan.n, plan.k), dtype=rw.r.dtype, device=rw.r.device)
-    vals[plan.slot_rows, plan.slot_cols] = -rw.r[plan.edge_id]
+    vals = torch.zeros(rw.r.shape[:-1] + (plan.n, plan.k), dtype=rw.r.dtype,
+                       device=rw.r.device)
+    vals[..., plan.slot_rows, plan.slot_cols] = -rw.r[..., plan.edge_id]
     return vals, rw.diag
 
 
@@ -174,7 +181,7 @@ def matvec_ell(cols: torch.Tensor, vals: torch.Tensor, diag: torch.Tensor,
     """ELLPACK matvec  y = diag·v + Σ_lane vals[:,lane] · v[cols[:,lane]].
 
     Padded lanes carry vals == 0, so gathering v[0] there is harmless."""
-    return diag * v + (vals * v[cols]).sum(dim=1)
+    return diag * v + (vals * v[..., cols]).sum(dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -198,8 +205,9 @@ def ell_edge_weights(plan: EllPlan, c: torch.Tensor) -> torch.Tensor:
     """Scatter the edge weights ``c`` into the static ELL slots, once per
     SOLVE (the weights are fixed across the IRLS loop).  Padded slots keep
     c = 0 → r = 0, so every IRLS iteration is then a scatter-free sweep."""
-    ce = torch.zeros((plan.n, plan.k), dtype=c.dtype, device=c.device)
-    ce[plan.slot_rows, plan.slot_cols] = c[plan.edge_id]
+    ce = torch.zeros(c.shape[:-1] + (plan.n, plan.k), dtype=c.dtype,
+                     device=c.device)
+    ce[..., plan.slot_rows, plan.slot_cols] = c[..., plan.edge_id]
     return ce
 
 
@@ -218,17 +226,17 @@ def fused_ell_sweep(cols: torch.Tensor, c_ell: torch.Tensor,
     This is the plain version of the CUDA kernel
     (kernels/csrc/fused_ell_sweep.cu)."""
     n = cols.shape[0]
-    vr = v[:n]
-    z = c_ell * (vr[:, None] - v[cols])
+    vr = v[..., :n]
+    z = c_ell * (vr[..., None] - v[..., cols])
     r = (c_ell * c_ell) * torch.rsqrt(z * z + eps_sq(eps))
     r_s, r_t = terminal_conductances(c_s, c_t, vr, eps)
-    diag = r.sum(dim=1) + r_s + r_t
+    diag = r.sum(dim=-1) + r_s + r_t
     return -r, diag, r_s, r_t
 
 
 def edge_r_from_vals(plan: EllPlan, vals: torch.Tensor) -> torch.Tensor:
     """Recover per-edge conductances r[m] from a fused-sweep value matrix."""
-    return -vals[plan.edge_row, plan.edge_lane]
+    return -vals[..., plan.edge_row, plan.edge_lane]
 
 
 def dense_reduced_laplacian(g: DeviceGraph, rw: Reweighted) -> torch.Tensor:

@@ -20,9 +20,18 @@ the iteration counts equal the JAX package's ``lax.while_loop`` counts.
 That is one device-to-host synchronisation per CG step.
 
 The matvec, the preconditioner and the inner products are closures
-(``dot``/``dot2``, default ``torch.dot``), so the same loops serve the ELL
+(``dot``/``dot2``, default ``lane_dot``), so the same loops serve the ELL
 kernels, the COO layout and dense oracles.  ``dot2(r, z) → (r·z, r·r)``
 lets a caller fuse both reductions of a step into one.
+
+Batches: ``pcg_masked`` and ``pcg_fixed_iters`` also take a batch of B
+independent systems, with ``b`` and the iterates of shape (B, n) and every
+scalar of the recurrence (B,).  This is the batched program the JAX package
+gets from ``jax.vmap``.  ``pcg_masked`` then counts iterations per lane and
+runs until no lane is active: a lane whose residual is below its own
+tolerance takes no further step (its updates are masked), so it is frozen
+while the others go on, and ``tol`` may be a (B,) tensor.  The stopping test
+reads one bool per CG step for the whole batch.
 """
 from __future__ import annotations
 
@@ -40,9 +49,20 @@ class PCGResult(NamedTuple):
     history: torch.Tensor    # f[max_iters+1] residual norms (NaN-padded)
 
 
+def lane_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Inner product over the last dimension: one value per lane.  Each
+    lane is its own ``torch.dot``, so its value does not depend on how many
+    lanes share the batch: a co-batched lane and the same system solved
+    alone take the same steps (bit for bit, where the matvec's scatters are
+    deterministic too)."""
+    if a.dim() == 1:
+        return torch.dot(a, b)
+    return torch.stack([torch.dot(x, y) for x, y in zip(a, b)])
+
+
 def _resolve_dots(dot, dot2):
     if dot is None:
-        dot = torch.dot
+        dot = lane_dot
     if dot2 is None:
         def dot2(r, z, _dot=dot):
             return _dot(r, z), _dot(r, r)
@@ -56,7 +76,11 @@ def _nonzero(x: torch.Tensor) -> torch.Tensor:
 
 def _tol2(tol, bb: torch.Tensor) -> torch.Tensor:
     """tol²·‖b‖², with tol squared in float32 as the solver's dtype squares
-    it (a host scalar: no transfer to the device)."""
+    it.  ``tol`` is a host scalar (no transfer to the device) or a tensor of
+    per-lane tolerances."""
+    if isinstance(tol, torch.Tensor):
+        t = tol.to(device=bb.device, dtype=bb.dtype)
+        return t * t * bb
     return float(np.float32(tol) * np.float32(tol)) * bb
 
 
@@ -113,9 +137,11 @@ def pcg_masked(matvec, b, x0=None, precond=None, tol=1e-3,
                max_iters: int = 50, dot=None, dot2=None) -> PCGResult:
     """PCG with early exit and explicitly masked updates (no history).
 
-    Same update rule as ``pcg``; every state update is gated on
-    ``active = rr > tol²·‖b‖²``, so a converged instance's (x, r, p) are
-    frozen.  ``tol`` may be ``inf``: zero iterations, ``x0`` untouched."""
+    Same update rule as ``pcg``; every state update is gated on the lane's
+    own ``active = rr > tol²·‖b‖²``, so a converged lane's (x, r, p) are
+    frozen.  ``tol`` may be ``inf`` (per lane, too): zero iterations, ``x0``
+    untouched.  ``iters`` is an int32 tensor of per-lane counts (0-d for a
+    single system)."""
     if precond is None:
         precond = lambda r: r
     dot, dot2 = _resolve_dots(dot, dot2)
@@ -130,22 +156,26 @@ def pcg_masked(matvec, b, x0=None, precond=None, tol=1e-3,
     p = z
     rz, rr = dot2(r, z)
 
-    it = 0
+    it = torch.zeros(rr.shape, dtype=torch.int32, device=rr.device)
     zero = torch.zeros_like(bb)
-    while it < max_iters and bool(rr > tol2):
+    step = 0
+    # every lane still active has taken every step so far, so the shared
+    # step count is the cap of each lane's own count
+    while step < max_iters and bool((rr > tol2).any()):
         active = rr > tol2
         Ap = matvec(p)
         pAp = dot(p, Ap)
         alpha = torch.where(active, rz / _nonzero(pAp), zero)
-        x = x + alpha * p
-        r = r - alpha * Ap
+        x = x + alpha[..., None] * p
+        r = r - alpha[..., None] * Ap
         z = precond(r)
         rz_new, rr_new = dot2(r, z)
         beta = rz_new / _nonzero(rz)
-        p = torch.where(active, z + beta * p, p)
+        p = torch.where(active[..., None], z + beta[..., None] * p, p)
         rz = torch.where(active, rz_new, rz)
         rr = torch.where(active, rr_new, rr)
-        it += 1
+        it = it + active.to(torch.int32)
+        step += 1
     return PCGResult(x=x, iters=it, rel_res=torch.sqrt(rr / bb),
                      history=torch.zeros((1,), dtype=b.dtype, device=b.device))
 
@@ -153,7 +183,9 @@ def pcg_masked(matvec, b, x0=None, precond=None, tol=1e-3,
 def pcg_fixed_iters(matvec, b, x0=None, precond=None, n_iters: int = 50,
                     record_history: bool = True, dot=None, dot2=None):
     """PCG with a fixed iteration count (no stopping test, no host sync).
-    ``record_history=False`` drops the per-step residual-norm reduction."""
+    ``record_history=False`` drops the per-step residual-norm reduction.
+    On a batch, ``rel_res`` holds one value per lane and ``history`` is
+    (n_iters, B)."""
     if precond is None:
         precond = lambda r: r
     dot, dot2 = _resolve_dots(dot, dot2)
@@ -167,8 +199,8 @@ def pcg_fixed_iters(matvec, b, x0=None, precond=None, n_iters: int = 50,
         Ap = matvec(p)
         pAp = dot(p, Ap)
         alpha = rz / _nonzero(pAp)
-        x = x + alpha * p
-        r = r - alpha * Ap
+        x = x + alpha[..., None] * p
+        r = r - alpha[..., None] * Ap
         z = precond(r)
         if record_history:
             rz_new, rr = dot2(r, z)
@@ -176,7 +208,7 @@ def pcg_fixed_iters(matvec, b, x0=None, precond=None, n_iters: int = 50,
         else:
             rz_new = dot(r, z)
         beta = rz_new / _nonzero(rz)
-        p = z + beta * p
+        p = z + beta[..., None] * p
         rz = rz_new
     bb = dot(b, b)
     b_norm = torch.sqrt(torch.clamp(bb, min=0.0))

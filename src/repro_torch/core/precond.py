@@ -13,7 +13,10 @@ parallel.  Here, as in the JAX package:
   — the CUDA kernel kernels/csrc/block_diag_matvec.cu under ``use_pallas``.
 
 A point Jacobi and a Chebyshev polynomial preconditioner are the cheaper
-options.  Strategies resolve through ``REGISTRY`` (name → factory
+options.  All of them take one instance or a batch of B lanes sharing one
+block plan: a batch's blocks form one flat batch ``A[B·P, bs, bs]``, so the
+Cholesky, the explicit inverse and the block_diag_matvec kernel see a single
+block batch.  Strategies resolve through ``REGISTRY`` (name → factory
 ``(rw, matvec, cfg, block_plan) → apply_fn | None``).
 """
 from __future__ import annotations
@@ -103,34 +106,37 @@ def build_block_plan(src, dst, labels, p: int, pad_to_multiple: int = 8,
 
 
 def assemble_blocks(plan: BlockPlan, rw: Reweighted) -> torch.Tensor:
-    """Scatter the block diagonal of L̃ into A[p, bs, bs].
+    """Scatter the block diagonal of L̃ into A[p, bs, bs] (A[B·p, bs, bs]
+    for a batch of B lanes, lane-major).
 
     The diagonal is the FULL L̃ diagonal (cut-edge and terminal conductances
     included), so every block is strictly diagonally dominant ⇒ SPD; padded
     slots get the identity."""
     p, bs = plan.p, plan.bs
     dt, dev = rw.diag.dtype, rw.diag.device
-    A = torch.zeros((p, bs, bs), dtype=dt, device=dev)
-    r_in = rw.r[plan.intra_e]
-    A.index_put_((plan.intra_b, plan.intra_i, plan.intra_j), -r_in,
+    lanes = rw.diag.reshape(-1, rw.diag.shape[-1]).shape[0]
+    A = torch.zeros((lanes, p, bs, bs), dtype=dt, device=dev)
+    lane = torch.arange(lanes, device=dev)[:, None]
+    r_in = rw.r[..., plan.intra_e].reshape(lanes, -1)
+    A.index_put_((lane, plan.intra_b, plan.intra_i, plan.intra_j), -r_in,
                  accumulate=True)
-    A.index_put_((plan.intra_b, plan.intra_j, plan.intra_i), -r_in,
+    A.index_put_((lane, plan.intra_b, plan.intra_j, plan.intra_i), -r_in,
                  accumulate=True)
-    A.index_put_((plan.node_block, plan.node_slot, plan.node_slot), rw.diag,
-                 accumulate=True)
+    A.index_put_((lane, plan.node_block, plan.node_slot, plan.node_slot),
+                 rw.diag.reshape(lanes, -1), accumulate=True)
     # identity on padded slots keeps the batched Cholesky nonsingular
     occupied = torch.zeros((p, bs), dtype=dt, device=dev)
     occupied[plan.node_block, plan.node_slot] = 1.0
     pad = torch.arange(bs, device=dev)
-    A[:, pad, pad] += 1.0 - occupied
-    return A
+    A[:, :, pad, pad] += 1.0 - occupied
+    return A.reshape(lanes * p, bs, bs)
 
 
 class BlockJacobi(NamedTuple):
     """Factorized block-Jacobi preconditioner state (per IRLS iteration)."""
 
-    chol: torch.Tensor            # [p, bs, bs] lower Cholesky factors
-    inv: Optional[torch.Tensor]   # [p, bs, bs] explicit inverses
+    chol: torch.Tensor            # [(B·)p, bs, bs] lower Cholesky factors
+    inv: Optional[torch.Tensor]   # [(B·)p, bs, bs] explicit inverses
     plan: BlockPlan
 
 
@@ -148,19 +154,22 @@ def factorize_blocks(plan: BlockPlan, rw: Reweighted,
         eye = torch.eye(plan.bs, dtype=chol.dtype, device=chol.device)
         # row-major: on CUDA cholesky_solve returns column-major batches,
         # and the block_diag_matvec kernel reads rows
-        inv = torch.cholesky_solve(eye.expand(plan.p, plan.bs, plan.bs),
-                                   chol).contiguous()
+        inv = torch.cholesky_solve(eye.expand(chol.shape), chol).contiguous()
     return BlockJacobi(chol=chol, inv=inv, plan=plan)
 
 
 def gather_blocks(plan: BlockPlan, x: torch.Tensor) -> torch.Tensor:
-    xb = torch.zeros((plan.p, plan.bs), dtype=x.dtype, device=x.device)
-    xb[plan.node_block, plan.node_slot] = x
-    return xb
+    """x[..., n] → the flat block batch xb[(B·)p, bs] (padded slots 0)."""
+    xb = torch.zeros(x.shape[:-1] + (plan.p, plan.bs), dtype=x.dtype,
+                     device=x.device)
+    xb[..., plan.node_block, plan.node_slot] = x
+    return xb.reshape(-1, plan.bs)
 
 
-def scatter_blocks(plan: BlockPlan, xb: torch.Tensor) -> torch.Tensor:
-    return xb[plan.node_block, plan.node_slot]
+def scatter_blocks(plan: BlockPlan, xb: torch.Tensor, shape) -> torch.Tensor:
+    """The inverse of ``gather_blocks``: back to a vector of ``shape``."""
+    y = xb.reshape(-1, plan.p, plan.bs)[:, plan.node_block, plan.node_slot]
+    return y.reshape(shape)
 
 
 def block_diag_matvec(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -178,7 +187,7 @@ def apply_block_jacobi(M: BlockJacobi, x: torch.Tensor) -> torch.Tensor:
         yb = block_diag_matvec(M.inv, xb)
     else:
         yb = torch.cholesky_solve(xb[..., None], M.chol)[..., 0]
-    return scatter_blocks(M.plan, yb)
+    return scatter_blocks(M.plan, yb, x.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -255,5 +264,6 @@ def _make_block_jacobi(rw, matvec, cfg, block_plan):
     if cfg.use_pallas and M.inv is not None:
         from ..kernels import ops as kops
         return lambda x: scatter_blocks(
-            M.plan, kops.block_diag_matvec(M.inv, gather_blocks(M.plan, x)))
+            M.plan, kops.block_diag_matvec(M.inv, gather_blocks(M.plan, x)),
+            x.shape)
     return lambda x: apply_block_jacobi(M, x)

@@ -9,16 +9,26 @@ PCG → rounding) has two kinds of state:
 * **numeric** — edge/terminal weights, voltages, the per-iteration
   reweighted systems.  Fresh per solve (``MinCutSession.solve``).
 
-This slice of the port runs the ``"host"`` backend: a host-driven IRLS loop
-whose steps run on the session's device.  The JAX package's ``"scanned"``
-and ``"sharded"`` backends, presolve and delta staging are later slices
-(ROADMAP queue 1) and raise ``NotImplementedError`` here.
+Two backends run on the session's device:
+
+  backend     driver                                    solve_batch
+  ─────────   ───────────────────────────────────────   ───────────
+  "host"      ``run_host_loop``: one IRLS iteration     no
+              per call, PCG stopping on tolerance,
+              full diagnostics
+  "scanned"   ``make_scanned_program``: all T           yes (a batch of
+              iterations on the fixed or masked         B lanes in one
+              adaptive schedule                         program)
+
+The JAX package's ``"sharded"`` backend, presolve and delta staging are
+later slices (ROADMAP queue 1) and raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
+import hashlib
 import threading
 import time
-from typing import Dict, NamedTuple, Optional, Union
+from typing import Dict, List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -29,11 +39,14 @@ from . import laplacian as lap
 from . import precond as pc
 from . import rounding as rd
 from .incidence import DeviceGraph, device_graph_from_instance
-from .irls import (IRLSConfig, IRLSDiagnostics, _Stepper, run_host_loop,
-                   torch_dtype)
+from .irls import (IRLSConfig, IRLSDiagnostics, _Stepper, make_scanned_program,
+                   run_host_loop, torch_dtype)
 from .rounding import RoundingResult
 from ..graphs import partition as gp
 from ..graphs.structures import EdgeList, STInstance, permute_instance
+from ..obs import trace
+from ..obs.metrics import get_registry
+from ..obs.telemetry import TelemetryAggregator, build_solve_telemetry
 
 
 class Weights(NamedTuple):
@@ -83,6 +96,68 @@ def check_weights_for(instance: STInstance, weights: WeightsLike) -> Weights:
     return w
 
 
+def rebind_terminals(instance: STInstance, u: int, v: int,
+                     c: Optional[np.ndarray] = None,
+                     strength: Optional[float] = None) -> Weights:
+    """One-hot terminal rebinding: ``Weights`` whose only terminal edges are
+    s—``u`` and t—``v``, each with capacity ``strength``.
+
+    Any ``strength`` ≥ the u-v min cut of the non-terminal graph keeps the
+    terminal edges uncut, so the instance's min cut IS the u-v min cut of
+    the graph under ``c`` (default: the instance's own edge weights).  The
+    default strength is ``1 + min(d_c(u), d_c(v))``: the weighted degree
+    already bounds the u-v min cut, and staying near the graph's own weight
+    scale keeps the IRLS conductances well-conditioned.  The topology is
+    untouched, so solves under the returned weights reuse every plan."""
+    n = instance.n
+    u, v = int(u), int(v)
+    if not (0 <= u < n and 0 <= v < n):
+        raise ValueError(f"terminal pair ({u}, {v}) out of range for n={n}")
+    if u == v:
+        raise ValueError(f"terminal pair must be distinct, got ({u}, {v})")
+    default_c = c is None
+    c = np.asarray(instance.graph.weight if default_c else c,
+                   dtype=np.float64)
+    if c.shape[0] != instance.graph.m:
+        raise ValueError(f"c has {c.shape[0]} edges; topology has "
+                         f"{instance.graph.m}")
+    if strength is None:
+        if default_c:
+            deg = instance.graph.weighted_degrees()
+        else:
+            deg = np.zeros(n, dtype=np.float64)
+            np.add.at(deg, np.asarray(instance.graph.src), c)
+            np.add.at(deg, np.asarray(instance.graph.dst), c)
+        strength = 1.0 + min(deg[u], deg[v])
+    c_s = np.zeros(n, dtype=np.float64)
+    c_t = np.zeros(n, dtype=np.float64)
+    c_s[u] = strength
+    c_t[v] = strength
+    return Weights(c=c, c_s=c_s, c_t=c_t)
+
+
+def topology_fingerprint(instance: STInstance) -> str:
+    """Content hash of the graph TOPOLOGY (n + oriented edge list).
+
+    Weights are excluded: two instances that differ only in edge/terminal
+    weights share a fingerprint, and so every topology-level artifact.  The
+    same blake2b hash as the JAX package's, so the two packages agree on
+    every fingerprint.  The cache key of the serving layer."""
+    g = instance.graph
+    h = hashlib.blake2b(digest_size=16)
+    h.update(np.int64(g.n).tobytes())
+    h.update(np.ascontiguousarray(np.asarray(g.src, dtype=np.int64)).tobytes())
+    h.update(np.ascontiguousarray(np.asarray(g.dst, dtype=np.int64)).tobytes())
+    return h.hexdigest()
+
+
+def _lanes_to(arrays, dtype, device) -> torch.Tensor:
+    """Stack one host array per lane into a (B, ·) tensor on ``device``,
+    each rounded to ``dtype`` on the host first (half the upload)."""
+    return torch.stack([torch.as_tensor(np.asarray(a)).to(dtype)
+                        for a in arrays]).to(device)
+
+
 class Problem:
     """One-time topology state: instance + partition labels + plans.
 
@@ -102,7 +177,23 @@ class Problem:
         self.inst_r = inst_r              # reordered instance (solver frame)
         self._cache: Dict[tuple, object] = {}
         self._components: Optional[np.ndarray] = None
+        self._fingerprint: Optional[str] = None
         self._plan_lock = threading.RLock()
+
+    @property
+    def fingerprint(self) -> str:
+        """Topology content hash (see ``topology_fingerprint``)."""
+        with self._plan_lock:
+            if self._fingerprint is None:
+                self._fingerprint = topology_fingerprint(self.instance)
+            return self._fingerprint
+
+    def rebind_terminals(self, u: int, v: int,
+                         c: Optional[np.ndarray] = None,
+                         strength: Optional[float] = None) -> Weights:
+        """Weights that re-pin the terminals to the node pair (u, v): a
+        pure weight change (see ``rebind_terminals``)."""
+        return rebind_terminals(self.instance, u, v, c=c, strength=strength)
 
     @classmethod
     def build(cls, instance: STInstance, n_blocks: int = 16,
@@ -209,12 +300,16 @@ class SolveResult(NamedTuple):
 
     voltages: np.ndarray                    # x^(T), original node order
     cut: Optional[RoundingResult]           # None when rounding=None
-    diagnostics: Optional[IRLSDiagnostics]  # host backend
-    residuals: Optional[np.ndarray]         # scanned/sharded only (None here)
+    diagnostics: Optional[IRLSDiagnostics]  # host backend only
+    residuals: Optional[np.ndarray]         # scanned: PCG residual per IRLS
+                                            # iteration
     timings: Dict[str, float]               # per-phase seconds
     backend: str
-    pcg_iters: Optional[np.ndarray] = None  # scanned/sharded only (None here)
-    telemetry: Optional[Dict] = None        # None until obs is ported
+    pcg_iters: Optional[np.ndarray] = None  # scanned: PCG iterations spent
+                                            # per IRLS iteration (0 once
+                                            # the adaptive mask froze it)
+    telemetry: Optional[Dict] = None        # per-solve record (obs.telemetry;
+                                            # cost fields None)
 
     @property
     def cut_value(self) -> float:
@@ -224,14 +319,17 @@ class SolveResult(NamedTuple):
 class MinCutSession:
     """Solver cache over one ``Problem`` on one device.
 
-    Steppers are keyed on the ``IRLSConfig``; the first solve per config pays
-    the plan upload, later solves only the numerics.  ``solve(weights=...)``
-    re-solves the same topology under new weights; ``solve(warm_from=prev)``
-    continues from a previous result's voltages."""
+    Steppers and scanned programs are keyed on ``(IRLSConfig, backend,
+    ...)``; the first solve per key pays the plan upload, later solves only
+    the numerics.  ``solve(weights=...)`` re-solves the same topology under
+    new weights; ``solve(warm_from=prev)`` continues from a previous
+    result's voltages; ``solve_batch`` solves many weight assignments of the
+    topology in one batched scanned program.  Safe to share between the
+    serving engine's worker threads: every cache build runs once, under a
+    lock per key."""
 
-    BACKENDS = ("host",)
-    _LATER = {"scanned": "ROADMAP queue 1, item 7 (batched backend)",
-              "sharded": "ROADMAP queue 1, item 12 (distributed/)"}
+    BACKENDS = ("host", "scanned")
+    _LATER = {"sharded": "ROADMAP queue 1, item 12 (distributed/)"}
 
     def __init__(self, problem: Union[Problem, STInstance],
                  cfg: IRLSConfig = IRLSConfig(), backend: str = "host",
@@ -244,8 +342,11 @@ class MinCutSession:
         self._check_backend(backend)
         self.backend = backend
         self.device = torch.device(device)
-        self._steppers: Dict[IRLSConfig, _Stepper] = {}
-        self._lock = threading.Lock()
+        self._steppers: Dict[tuple, object] = {}
+        self._cache_lock = threading.Lock()
+        self._compile_locks: Dict[tuple, threading.Lock] = {}
+        # per-session fold of every SolveResult.telemetry (obs.telemetry)
+        self.telemetry = TelemetryAggregator()
 
     def _check_backend(self, backend: str) -> None:
         if backend in self._LATER:
@@ -255,6 +356,16 @@ class MinCutSession:
         if backend not in self.BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; "
                              f"known: {self.BACKENDS}")
+
+    @staticmethod
+    def _check_delta_key(cfg: IRLSConfig) -> None:
+        """A delta key changes nothing off the fused-ELL path (the JAX
+        package only records the weights there); on it, it would restage
+        the ELL weight table in place, which is not ported yet."""
+        if cfg.layout == "ell" and cfg.fuse_edge_sweep:
+            raise NotImplementedError(
+                "delta_key staging of the fused-ELL weight table is not "
+                "ported yet: ROADMAP queue 1, delta staging")
 
     def solve(self, weights: Optional[WeightsLike] = None,
               warm_from: Optional[Union[SolveResult, np.ndarray]] = None,
@@ -272,6 +383,8 @@ class MinCutSession:
                     to continue from.
         rounding  — name in ``rounding.REGISTRY`` ("two_level", "sweep"),
                     or None to skip rounding.
+        delta_key — identity of a weight sequence: accepted and without
+                    effect off the fused-ELL path; on it, not ported yet.
         """
         backend = backend or self.backend
         cfg = cfg or self.cfg
@@ -280,26 +393,168 @@ class MinCutSession:
             raise NotImplementedError(
                 "presolve is not ported yet: ROADMAP queue 1, item 8")
         if delta_key is not None:
-            raise NotImplementedError(
-                "delta_key staging is not ported yet: ROADMAP queue 1, item 6")
+            self._check_delta_key(cfg)
         trivial = self._check_connectivity(weights, rounding, backend)
         if trivial is not None:
             return trivial
         timings: Dict[str, float] = {}
+        diag = rels = pcg_iters = None
+        get_registry().counter(f"session_solves_{backend}_total").inc()
         t0 = time.perf_counter()
-        v, diag = self._solve_host(cfg, weights, warm_from, collect_voltages,
-                                   timings)
-        timings["irls"] = (time.perf_counter() - t0
-                           - timings.get("setup", 0.0))
-        cut = None
-        if rounding is not None:
-            t1 = time.perf_counter()
-            cut = rd.round_voltages(rounding, self.problem.instance_with(weights),
-                                    v, device=self.device)
-            timings["rounding"] = time.perf_counter() - t1
-        timings["total"] = time.perf_counter() - t0
+        with trace.span("session.solve", backend=backend,
+                        n=self.problem.instance.n):
+            with trace.span("session.irls", backend=backend):
+                if backend == "host":
+                    v, diag = self._solve_host(cfg, weights, warm_from,
+                                               collect_voltages, timings)
+                else:
+                    v, rels, pcg_iters = self._solve_scanned(
+                        cfg, weights, timings, warm_from)
+            timings["irls"] = (time.perf_counter() - t0
+                               - timings.get("setup", 0.0))
+            # a single solve is its own batch: the solver wall a caller
+            # waited behind equals this request's IRLS time
+            timings["irls_wall"] = timings["irls"]
+            cut = None
+            if rounding is not None:
+                t1 = time.perf_counter()
+                with trace.span("session.rounding", method=rounding):
+                    cut = rd.round_voltages(
+                        rounding, self.problem.instance_with(weights), v,
+                        device=self.device)
+                timings["rounding"] = time.perf_counter() - t1
+            timings["total"] = time.perf_counter() - t0
+        tel = build_solve_telemetry(
+            cfg, backend, self.problem.instance.n,
+            self.problem.instance.graph.m, timings, pcg_iters=pcg_iters,
+            residuals=rels, diagnostics=diag,
+            warm_start=warm_from is not None)
+        self.telemetry.add(tel)
         return SolveResult(voltages=v, cut=cut, diagnostics=diag,
-                           residuals=None, timings=timings, backend=backend)
+                           residuals=rels, timings=timings, backend=backend,
+                           pcg_iters=pcg_iters, telemetry=tel)
+
+    def solve_batch(self, weights_batch: Sequence[WeightsLike],
+                    rounding: Optional[str] = "two_level",
+                    cfg: Optional[IRLSConfig] = None,
+                    pad_to: Optional[int] = None,
+                    presolve: bool = False,
+                    warm_from: Optional[Sequence] = None,
+                    delta_keys: Optional[Sequence[Optional[str]]] = None,
+                    ) -> List[SolveResult]:
+        """Solve MANY same-topology instances in one batched scanned program
+        — the serving path (segmentation frames, FlowImprove populations).
+        The lanes share the topology and plans; rounding runs per instance
+        afterwards.
+
+        ``pad_to`` pads the batch up to that length by repeating the last
+        weight vector (the micro-batcher's power-of-two buckets); only the
+        real results are returned.  ``warm_from`` — one previous
+        SolveResult / original-order voltage array per entry: the whole
+        batch runs the warm-started program.  Entries whose terminals lie
+        in different components resolve to the trivial 0-cut and drop out
+        of the batch.  ``delta_keys`` — one weight-sequence identity per
+        entry: accepted and without effect off the fused-ELL path; on it,
+        not ported yet.  ``presolve`` is not ported yet."""
+        ws = [self.problem.check_weights(w) for w in weights_batch]
+        if not ws:
+            # empty batch: nothing to stack, nothing to build
+            return []
+        cfg = cfg or self.cfg
+        if delta_keys is not None and len(delta_keys) != len(ws):
+            raise ValueError(f"delta_keys has {len(delta_keys)} entries for "
+                             f"a batch of {len(ws)}")
+        if presolve:
+            raise NotImplementedError(
+                "presolve is not ported yet: ROADMAP queue 1, item 8")
+        if delta_keys is not None and any(k is not None for k in delta_keys):
+            self._check_delta_key(cfg)
+        prob = self.problem
+        dtype = torch_dtype(cfg)
+        warm = warm_from is not None
+        if warm and len(warm_from) != len(ws):
+            raise ValueError(f"warm_from has {len(warm_from)} entries for a "
+                             f"batch of {len(ws)}")
+        # disconnected entries resolve trivially and drop out of the batch
+        out: List[Optional[SolveResult]] = [None] * len(ws)
+        live: List[int] = []
+        for i, w in enumerate(ws):
+            out[i] = self._check_connectivity(w, rounding, "scanned")
+            if out[i] is None:
+                live.append(i)
+        if not live:
+            return [r for r in out if r is not None]
+        ws_live = [ws[i] for i in live]
+        n_real = len(ws_live)
+        pad = 0
+        if pad_to is not None:
+            if pad_to < n_real:
+                raise ValueError(f"pad_to={pad_to} is smaller than the batch "
+                                 f"({n_real})")
+            pad = pad_to - n_real
+        get_registry().counter("session_solves_scanned_total").inc(n_real)
+        t0 = time.perf_counter()
+        with trace.span("session.solve_batch", size=n_real,
+                        pad_to=pad_to or n_real, warm=warm):
+            run = self._get_scanned(cfg, dtype, warm)
+            ws_run = ws_live + [ws_live[-1]] * pad
+            C = _lanes_to([w.c for w in ws_run], dtype, self.device)
+            CS = _lanes_to([prob.to_reordered(w.c_s) for w in ws_run], dtype,
+                           self.device)
+            CT = _lanes_to([prob.to_reordered(w.c_t) for w in ws_run], dtype,
+                           self.device)
+            with trace.span("session.irls", backend="scanned",
+                            batch=len(ws_run)):
+                if warm:
+                    vs = [np.asarray(v.voltages
+                                     if isinstance(v, SolveResult) else v)
+                          for v in warm_from]
+                    vs_run = [vs[i] for i in live] + [vs[live[-1]]] * pad
+                    V0 = _lanes_to([prob.to_reordered(v) for v in vs_run],
+                                   dtype, self.device)
+                    V, RELS, ITERS = run(C, CS, CT, V0)
+                else:
+                    V, RELS, ITERS = run(C, CS, CT)
+                del C, CS, CT
+                V = V.cpu().numpy()
+                RELS = RELS.cpu().numpy()
+                ITERS = ITERS.cpu().numpy()
+            t_irls = time.perf_counter() - t0
+            rounded = []
+            for j, i in enumerate(live):
+                w = ws_live[j]
+                v = prob.to_original(V[j])
+                cut = None
+                t1 = time.perf_counter()
+                if rounding is not None:
+                    with trace.span("session.rounding", method=rounding):
+                        cut = rd.round_voltages(rounding,
+                                                prob.instance_with(w), v,
+                                                device=self.device)
+                rounded.append((i, j, v, cut, time.perf_counter() - t1))
+            # every caller's future resolves only once the WHOLE batch
+            # returns, so the solver wall a request waited behind is the
+            # full batch wall minus its own rounding (counted separately)
+            t_wall = time.perf_counter() - t0
+            for i, j, v, cut, t_round in rounded:
+                timings = {"irls": t_irls / n_real,
+                           "irls_wall": t_wall - t_round,
+                           "rounding": t_round}
+                tel = build_solve_telemetry(
+                    cfg, "scanned", prob.instance.n, prob.instance.graph.m,
+                    timings, pcg_iters=ITERS[j], residuals=RELS[j],
+                    warm_start=warm)
+                self.telemetry.add(tel)
+                out[i] = SolveResult(
+                    voltages=v, cut=cut, diagnostics=None,
+                    residuals=RELS[j], timings=timings, backend="scanned",
+                    pcg_iters=ITERS[j], telemetry=tel)
+        return [r for r in out if r is not None]
+
+    def telemetry_snapshot(self) -> Dict[str, object]:
+        """Aggregated telemetry over every solve this session ran (PCG
+        spend distribution, phase walls, early-exit/warm-start rates)."""
+        return self.telemetry.snapshot()
 
     def _check_connectivity(self, weights, rounding, backend):
         """Guard against instances whose reduced Laplacian is singular.
@@ -330,10 +585,16 @@ class MinCutSession:
         if rounding is not None:
             cut = RoundingResult(in_source=in_source, cut_value=0.0,
                                  meta={"method": "trivial_disconnected"})
+        timings = {"total": 0.0, "irls": 0.0}
+        tel = build_solve_telemetry(
+            self.cfg, backend, self.problem.instance.n,
+            self.problem.instance.graph.m, timings, pcg_iters=[])
+        tel["trivial"] = "disconnected"
+        self.telemetry.add(tel)
         return SolveResult(voltages=in_source.astype(np.float64), cut=cut,
                            diagnostics=None, residuals=None,
-                           timings={"total": 0.0, "irls": 0.0},
-                           backend=backend)
+                           timings=timings, backend=backend, pcg_iters=None,
+                           telemetry=tel)
 
     def _plans_for(self, cfg: IRLSConfig):
         block_plan = None
@@ -350,17 +611,31 @@ class MinCutSession:
                     else None)
         return block_plan, ell_plan
 
+    def _cached(self, key: tuple, build):
+        """The cached driver under ``key``, built once: concurrent callers
+        of a cold key wait for the one build (a lock per key)."""
+        got = self._steppers.get(key)
+        if got is None:
+            with self._cache_lock:
+                lock = self._compile_locks.setdefault(key, threading.Lock())
+            with lock:
+                got = self._steppers.get(key)
+                if got is None:
+                    got = build()
+                    self._steppers[key] = got
+        return got
+
     def _solve_host(self, cfg, weights, warm_from, collect_voltages, timings):
         prob = self.problem
         dtype = torch_dtype(cfg)
         t = time.perf_counter()
-        with self._lock:
-            stepper = self._steppers.get(cfg)
-            if stepper is None:
-                block_plan, ell_plan = self._plans_for(cfg)
-                stepper = _Stepper(prob.device_graph(dtype, device=self.device),
-                                   cfg, block_plan, ell_plan)
-                self._steppers[cfg] = stepper
+
+        def build():
+            block_plan, ell_plan = self._plans_for(cfg)
+            return _Stepper(prob.device_graph(dtype, device=self.device),
+                            cfg, block_plan, ell_plan)
+
+        stepper = self._cached((cfg, "host"), build)
         timings["setup"] = time.perf_counter() - t
         v0 = None
         if warm_from is not None:
@@ -376,3 +651,35 @@ class MinCutSession:
                                 weights=dev_w)
         diag.setup_time = timings["setup"]
         return prob.to_original(v.cpu().numpy()), diag
+
+    def _get_scanned(self, cfg, dtype, warm: bool):
+        """The scanned program of ``cfg``, cached on (cfg, warm).  One
+        program serves a single solve (a batch of one) and a batch alike."""
+        def build():
+            block_plan, ell_plan = self._plans_for(cfg)
+            g0 = self.problem.device_graph(dtype, device=self.device)
+            return make_scanned_program(g0.src, g0.dst, cfg, block_plan,
+                                        ell_plan, warm=warm)
+
+        return self._cached((cfg, "scanned", warm), build)
+
+    def _solve_scanned(self, cfg, weights, timings, warm_from=None):
+        prob = self.problem
+        dtype = torch_dtype(cfg)
+        warm = warm_from is not None
+        t = time.perf_counter()
+        have = (cfg, "scanned", warm) in self._steppers
+        run = self._get_scanned(cfg, dtype, warm)
+        timings["setup"] = 0.0 if have else time.perf_counter() - t
+        # a batch of one lane: the arithmetic of every lane of solve_batch,
+        # so a solo solve and the same weights co-batched agree
+        g = prob.device_graph(dtype, weights, device=self.device)
+        args = [g.c[None], g.c_s[None], g.c_t[None]]
+        if warm:
+            wv = np.asarray(warm_from.voltages
+                            if isinstance(warm_from, SolveResult)
+                            else warm_from)
+            args.append(_lanes_to([prob.to_reordered(wv)], dtype, self.device))
+        v, rels, iters = run(*args)
+        return (prob.to_original(v[0].cpu().numpy()), rels[0].cpu().numpy(),
+                iters[0].cpu().numpy())

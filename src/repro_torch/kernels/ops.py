@@ -5,12 +5,19 @@ tensors lie on the CPU, and only then.  For CUDA tensors it checks device,
 dtype, shape and contiguity, allocates the outputs, launches the kernel on
 the current stream and raises if the launch fails; it never falls back.
 
+Every wrapper takes one instance or a batch of B same-topology lanes: the
+per-lane tensors carry a leading lane dimension, the index tensors (``cols``,
+``src``, ``dst``) are shared and passed once.
+
 ``launches`` counts the kernel launches per wrapper (plain-version calls do
-not count), so a run can show that its path went through the kernels.
+not count), so a run can show that its path went through the kernels.  The
+serving engine launches from several worker threads, so the counts change
+under ``_launch_lock``.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict
 
 import torch
@@ -19,22 +26,31 @@ from . import build, ref
 from ..core.incidence import eps_sq
 
 launches: Dict[str, int] = {"ell_spmv": 0, "fused_ell_sweep": 0,
-                            "block_diag_matvec": 0}
+                            "block_diag_matvec": 0, "edge_reweight": 0}
+_launch_lock = threading.Lock()
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    "ell_spmv_f32": ("ell_spmv", [_P] * 5 + [_I] * 4 + [_P]),
-    "ell_spmv_bf16": ("ell_spmv", [_P] * 5 + [_I] * 4 + [_P]),
+    "ell_spmv_f32": ("ell_spmv", [_P] * 5 + [_I] * 5 + [_P]),
+    "ell_spmv_bf16": ("ell_spmv", [_P] * 5 + [_I] * 5 + [_P]),
     "fused_ell_sweep_f32": ("fused_ell_sweep",
-                            [_P] * 5 + [_F] + [_P] * 4 + [_I] * 4 + [_P]),
+                            [_P] * 5 + [_F] + [_P] * 4 + [_I] * 5 + [_P]),
     "block_diag_matvec_f32": ("block_diag_matvec", [_P] * 3 + [_I] * 2 + [_P]),
+    "edge_reweight_f32": ("edge_reweight",
+                          [_P] * 4 + [_F, _P, _L, _I, _I, _P]),
 }
 _fns: Dict[str, ctypes._CFuncPtr] = {}
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _launch_lock:
+        for name in launches:
+            launches[name] = 0
+
+
+def _count(name: str) -> None:
+    with _launch_lock:
+        launches[name] += 1
 
 
 def _fn(symbol: str):
@@ -81,6 +97,22 @@ def _contiguous(**tensors: torch.Tensor) -> None:
         _require(t.is_contiguous(), f"{name} must be contiguous")
 
 
+# the ELL kernels put the lane on the grid's y index
+_MAX_LANES = 65535
+
+
+def _lanes(t: torch.Tensor, inner: int) -> int:
+    """Lanes of a per-lane tensor whose last ``inner`` dims are the
+    instance's own: 1 without a lane dim, B with one."""
+    if t.dim() == inner:
+        return 1
+    _require(t.dim() == inner + 1, f"expected {inner} or {inner + 1} dims, "
+             f"got shape {tuple(t.shape)}")
+    _require(t.shape[0] <= _MAX_LANES, f"at most {_MAX_LANES} lanes, got "
+             f"{t.shape[0]}")
+    return t.shape[0]
+
+
 def _group(k: int) -> int:
     """Lanes per row: the smallest power of two >= k, at most a warp."""
     g = 1
@@ -92,24 +124,28 @@ def _group(k: int) -> int:
 def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, diag: torch.Tensor,
              v: torch.Tensor) -> torch.Tensor:
     """ELLPACK SpMV  y = diag⊙v + Σ_lane vals⊙v[cols]  (float32 or bfloat16;
-    the CUDA kernel sums in float32)."""
+    the CUDA kernel sums in float32).  Batched: ``vals`` (B, n, k), ``diag``
+    and ``v`` (B, n) over one shared ``cols`` (n, k)."""
     if _on_cpu(cols, vals, diag, v):
         return ref.ell_spmv_ref(cols, vals, diag, v)
     n, k = cols.shape
+    b = _lanes(v, 1)
+    lead = tuple(v.shape[:-1])
     _require(cols.dtype == torch.int32, "cols must be int32")
     _require(v.dtype in (torch.float32, torch.bfloat16),
              f"v must be float32 or bfloat16, got {v.dtype}")
     _require(vals.dtype == diag.dtype == v.dtype,
              "vals, diag and v must share one dtype")
-    _require(vals.shape == (n, k) and diag.shape == (n,) and v.shape == (n,),
+    _require(vals.shape == lead + (n, k) and diag.shape == lead + (n,)
+             and v.shape == lead + (n,),
              f"shapes: cols {tuple(cols.shape)}, vals {tuple(vals.shape)}, "
              f"diag {tuple(diag.shape)}, v {tuple(v.shape)}")
     _contiguous(cols=cols, vals=vals, diag=diag, v=v)
-    y = torch.empty(n, dtype=v.dtype, device=v.device)
+    y = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     symbol = "ell_spmv_f32" if v.dtype == torch.float32 else "ell_spmv_bf16"
     _launch(symbol, v.device, cols.data_ptr(), vals.data_ptr(),
-            diag.data_ptr(), v.data_ptr(), y.data_ptr(), n, k, n, _group(k))
-    launches["ell_spmv"] += 1
+            diag.data_ptr(), v.data_ptr(), y.data_ptr(), n, k, n, _group(k), b)
+    _count("ell_spmv")
     return y
 
 
@@ -119,27 +155,31 @@ def fused_ell_sweep(cols: torch.Tensor, c_ell: torch.Tensor,
     """Single-sweep IRLS system build: (vals, diag, r_s, r_t) from one pass
     over the slot-major edge data.  ``v`` may be longer than the row count
     (halo-extended); its first ``cols.shape[0]`` entries are the row
-    voltages.  ε² is squared in float32, as the solver squares it."""
+    voltages.  ε² is squared in float32, as the solver squares it.
+    Batched: ``c_ell`` (B, n, k), ``c_s``/``c_t`` (B, n) and ``v`` (B, nv)
+    over one shared ``cols`` (n, k)."""
     if _on_cpu(cols, c_ell, c_s, c_t, v):
         return ref.fused_ell_sweep_ref(cols, c_ell, c_s, c_t, v, eps)
     n, k = cols.shape
-    nv = v.shape[0]
+    nv = v.shape[-1]
+    b = _lanes(v, 1)
+    lead = tuple(v.shape[:-1])
     _require(cols.dtype == torch.int32, "cols must be int32")
     _require(all(t.dtype == torch.float32 for t in (c_ell, c_s, c_t, v)),
              "c_ell, c_s, c_t and v must be float32")
-    _require(c_ell.shape == (n, k) and c_s.shape == (n,) and c_t.shape == (n,)
-             and v.dim() == 1 and nv >= n,
+    _require(c_ell.shape == lead + (n, k) and c_s.shape == lead + (n,)
+             and c_t.shape == lead + (n,) and nv >= n,
              f"shapes: cols {tuple(cols.shape)}, c_ell {tuple(c_ell.shape)}, "
              f"c_s {tuple(c_s.shape)}, c_t {tuple(c_t.shape)}, v {tuple(v.shape)}")
     _contiguous(cols=cols, c_ell=c_ell, c_s=c_s, c_t=c_t, v=v)
-    vals = torch.empty((n, k), dtype=v.dtype, device=v.device)
-    diag, r_s, r_t = (torch.empty(n, dtype=v.dtype, device=v.device)
+    vals = torch.empty(c_ell.shape, dtype=v.dtype, device=v.device)
+    diag, r_s, r_t = (torch.empty(c_s.shape, dtype=v.dtype, device=v.device)
                       for _ in range(3))
     _launch("fused_ell_sweep_f32", v.device, cols.data_ptr(),
             c_ell.data_ptr(), c_s.data_ptr(), c_t.data_ptr(), v.data_ptr(),
             eps_sq(eps), vals.data_ptr(), diag.data_ptr(), r_s.data_ptr(),
-            r_t.data_ptr(), n, k, nv, _group(k))
-    launches["fused_ell_sweep"] += 1
+            r_t.data_ptr(), n, k, nv, _group(k), b)
+    _count("fused_ell_sweep")
     return vals, diag, r_s, r_t
 
 
@@ -161,18 +201,30 @@ def block_diag_matvec(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     y = torch.empty((p, bs), dtype=x.dtype, device=x.device)
     _launch("block_diag_matvec_f32", x.device, blocks.data_ptr(),
             x.data_ptr(), y.data_ptr(), p, bs)
-    launches["block_diag_matvec"] += 1
+    _count("block_diag_matvec")
     return y
 
 
 def edge_reweight_r(src: torch.Tensor, dst: torch.Tensor, c: torch.Tensor,
                     v: torch.Tensor, eps) -> torch.Tensor:
     """Per-edge reweighted conductances r_e (COO layout), the ``edge_r`` of
-    ``core.laplacian.reweight`` under ``use_pallas``.  Its CUDA kernel is
-    not written yet (ROADMAP queue 2, item 4): CUDA tensors raise."""
+    ``core.laplacian.reweight`` under ``use_pallas``.  Batched: ``c`` (B, m)
+    and ``v`` (B, nv) over one shared ``src``/``dst`` (m,), int32 on CUDA.
+    An index outside [0, nv) gathers 0.  ε² is squared in float32."""
     if _on_cpu(src, dst, c, v):
         return ref.edge_reweight_ref(src, dst, c, v, eps)
-    raise NotImplementedError(
-        "edge_reweight has no CUDA kernel yet (ROADMAP queue 2, item 4); "
-        "use the fused ELL path (layout='ell', fuse_edge_sweep=True) or "
-        "use_pallas=False")
+    m = src.shape[0]
+    nv = v.shape[-1]
+    b = _lanes(v, 1)
+    lead = tuple(v.shape[:-1])
+    _require(src.dtype == dst.dtype == torch.int32, "src and dst must be int32")
+    _require(c.dtype == v.dtype == torch.float32, "c and v must be float32")
+    _require(src.shape == dst.shape == (m,) and c.shape == lead + (m,),
+             f"shapes: src {tuple(src.shape)}, dst {tuple(dst.shape)}, "
+             f"c {tuple(c.shape)}, v {tuple(v.shape)}")
+    _contiguous(src=src, dst=dst, c=c, v=v)
+    r = torch.empty(c.shape, dtype=v.dtype, device=v.device)
+    _launch("edge_reweight_f32", v.device, src.data_ptr(), dst.data_ptr(),
+            c.data_ptr(), v.data_ptr(), eps_sq(eps), r.data_ptr(), m, nv, b)
+    _count("edge_reweight")
+    return r

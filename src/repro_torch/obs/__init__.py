@@ -1,0 +1,21 @@
+"""Observability: tracing, metrics, solver telemetry.
+
+    trace      — thread-safe nested span tracer: in-memory ring +
+                 optional JSONL sink + ``torch.profiler`` passthrough;
+                 free when disabled (``trace.configure(enabled=True)``)
+    metrics    — Counter/Gauge/Histogram (bounded reservoir) registry
+                 with JSON + Prometheus-text exposition
+    telemetry  — the ``SolveResult.telemetry`` schema and its
+                 per-session / per-server aggregation
+
+Copies of the JAX package's ``repro.obs`` modules of the same names; its
+dashboard and perf gate wait for a later slice of the port.  Span names:
+
+    serve.*     engine batch/assembly/session_build   (serve/)
+    session.*   solve / solve_batch / irls / rounding (core/session.py)
+"""
+from . import metrics, telemetry, trace
+from .metrics import (Counter, Gauge, Histogram, MetricsRegistry, Reservoir,
+                      get_registry, parse_prometheus_text)
+from .telemetry import TelemetryAggregator, build_solve_telemetry
+from .trace import Tracer, configure, enabled, event, fence, get_tracer, span

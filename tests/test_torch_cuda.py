@@ -95,6 +95,74 @@ def test_block_diag_matvec_kernel(cuda, p, bs):
                                rtol=1e-5, atol=1e-4)
 
 
+def _zero_filled(idx, nv):
+    """Indices outside [0, nv) pointed at an appended 0 entry: the plain
+    version of the kernels' fill-with-0 gathers."""
+    idx = idx.long()
+    return torch.where((idx >= 0) & (idx < nv), idx, torch.full_like(idx, nv))
+
+
+# bit for bit: the kernel rounds each operation once, in the plain
+# version's order (correctly rounded square root and division)
+@pytest.mark.parametrize("m,n", [(100, 64), (5000, 300), (12288, 1024)])
+@pytest.mark.parametrize("lanes", [None, 3])
+@pytest.mark.parametrize("eps", [1e-6, 1e-2])
+def test_edge_reweight_kernel(cuda, m, n, lanes, eps):
+    """One instance and a batch of lanes over shared src/dst; a few indices
+    out of range gather 0, as the TPU kernel's fill_value=0 does."""
+    rng = np.random.default_rng(m + n)
+    b = 1 if lanes is None else lanes
+    src = rng.integers(0, n, m).astype(np.int32)
+    dst = rng.integers(0, n, m).astype(np.int32)
+    src[:3] = [n, n + 7, -1]
+    dst[3:5] = [n + 1, -5]
+    c = rng.uniform(0.1, 3.0, (b, m)).astype(np.float32)
+    v = rng.uniform(0, 1, (b, n)).astype(np.float32)
+    if lanes is None:
+        c, v = c[0], v[0]
+    s, d, cc, vv = _dev(cuda, src, dst, c, v)
+    before = ops.launches["edge_reweight"]
+    r = ops.edge_reweight_r(s, d, cc, vv, eps)
+    torch.cuda.synchronize()
+    assert ops.launches["edge_reweight"] == before + 1
+    assert r.shape == cc.shape
+    v_pad = torch.cat([vv, torch.zeros_like(vv[..., :1])], dim=-1)
+    want = ref.edge_reweight_ref(_zero_filled(s, n), _zero_filled(d, n), cc,
+                                 v_pad, eps)
+    np.testing.assert_array_equal(r.cpu().numpy(), want.cpu().numpy())
+
+
+# the batched ELL kernels: B lanes of values over one shared cols; the
+# tolerances of the single-instance tests above
+@pytest.mark.parametrize("n,k", [(64, 4), (777, 9), (1531, 33)])
+def test_ell_kernels_batched(cuda, n, k):
+    rng = np.random.default_rng(n + k)
+    b = 3
+    cols = rng.integers(0, n, size=(n, k)).astype(np.int32)
+    vals = rng.standard_normal((b, n, k)).astype(np.float32)
+    diag = rng.uniform(1, 3, size=(b, n)).astype(np.float32)
+    v = rng.standard_normal((b, n)).astype(np.float32)
+    c, a, d, x = _dev(cuda, cols, vals, diag, v)
+    y = ops.ell_spmv(c, a, d, x)
+    np.testing.assert_allclose(y.cpu().numpy(),
+                               ref.ell_spmv_ref(c, a, d, x).cpu().numpy(),
+                               rtol=1e-5, atol=1e-4)
+    c_ell = rng.uniform(0.1, 3.0, size=(b, n, k)).astype(np.float32)
+    c_ell[rng.uniform(size=(b, n, k)) < 0.4] = 0.0
+    c_s = rng.uniform(0, 2, size=(b, n)).astype(np.float32)
+    c_t = rng.uniform(0, 2, size=(b, n)).astype(np.float32)
+    vv = rng.uniform(0, 1, size=(b, n + 5)).astype(np.float32)   # halo tail
+    args = _dev(cuda, cols, c_ell, c_s, c_t, vv)
+    for got, want in zip(ops.fused_ell_sweep(*args, 1e-6),
+                         ref.fused_ell_sweep_ref(*args, 1e-6)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=3e-5, atol=1e-6)
+    # one lane of the batch equals the same lane launched alone
+    solo = ops.ell_spmv(c, a[1].contiguous(), d[1].contiguous(),
+                        x[1].contiguous())
+    assert torch.equal(solo, y[1])
+
+
 def test_wrappers_reject_bad_inputs(cuda):
     x = torch.zeros(8, device=cuda)
     with pytest.raises(ValueError, match="int32"):
@@ -103,10 +171,15 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         ops.block_diag_matvec(torch.zeros((2, 4, 4), device=cuda).transpose(1, 2),
                               torch.zeros((2, 4), device=cuda))
-    with pytest.raises(NotImplementedError, match="queue 2"):
+    with pytest.raises(ValueError, match="int32"):
         ops.edge_reweight_r(torch.zeros(2, dtype=torch.int64, device=cuda),
                             torch.zeros(2, dtype=torch.int64, device=cuda),
                             torch.ones(2, device=cuda), x, 1e-6)
+    with pytest.raises(ValueError, match="shapes"):
+        ops.ell_spmv(torch.zeros((8, 2), dtype=torch.int32, device=cuda),
+                     torch.zeros((3, 8, 2), device=cuda),
+                     torch.zeros((2, 8), device=cuda),
+                     torch.zeros((3, 8), device=cuda))
 
 
 def test_solve_through_kernels_matches_plain_path(cuda, grid_instance):
@@ -126,8 +199,38 @@ def test_solve_through_kernels_matches_plain_path(cuda, grid_instance):
               n_irls=12, n_blocks=4)
     ops.reset_launches()
     cut_k, v_k, _ = pirmcut(pinst, IRLSConfig(**kw), labels=labels)
-    assert all(n > 0 for n in ops.launches.values()), ops.launches
+    assert all(ops.launches[k] > 0 for k in ("ell_spmv", "fused_ell_sweep",
+                                             "block_diag_matvec")), ops.launches
+    assert ops.launches["edge_reweight"] == 0     # the fused path sweeps ELL
     cut_p, _, _ = pirmcut(pinst, IRLSConfig(**dict(kw, use_pallas=False)),
                           labels=labels)
     assert np.isfinite(v_k).all()
     assert cut_k.cut_value == pytest.approx(cut_p.cut_value, rel=1e-6)
+
+
+def test_solve_batch_through_kernels_matches_plain_path(cuda, grid_instance):
+    """The serving config (COO, adaptive, point Jacobi) under use_pallas
+    solves a batch through the edge-reweight kernel, once per IRLS
+    iteration, and reaches the plain path's cuts (rel 1e-4: index_add_
+    sums with atomics on the card, in no fixed order)."""
+    from repro_torch.core import IRLSConfig, MinCutSession, Problem
+    from repro_torch.graphs.structures import instance_from_arrays
+
+    inst = grid_instance
+    pinst = instance_from_arrays(inst.graph.src, inst.graph.dst,
+                                 inst.graph.weight, inst.graph.n,
+                                 inst.s_weight, inst.t_weight)
+    rng = np.random.default_rng(3)
+    ws = [(np.asarray(inst.graph.weight) * rng.uniform(0.8, 1.2, inst.graph.m),
+           inst.s_weight, inst.t_weight) for _ in range(4)]
+    kw = dict(n_irls=8, n_blocks=1, precond="jacobi", irls_tol=1e-3,
+              adaptive_tol=True, eps=1e-3)
+    sess = MinCutSession(Problem.build(pinst, 1), IRLSConfig(**kw),
+                         backend="scanned")
+    ops.reset_launches()
+    got = sess.solve_batch(ws, cfg=IRLSConfig(**kw, use_pallas=True))
+    assert ops.launches["edge_reweight"] == kw["n_irls"]
+    want = sess.solve_batch(ws)
+    for g, w in zip(got, want):
+        assert np.isfinite(g.voltages).all()
+        assert g.cut_value == pytest.approx(w.cut_value, rel=1e-4)

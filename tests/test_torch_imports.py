@@ -34,6 +34,21 @@ def test_port_imports_without_jax_or_repro():
     assert int(out.stdout.strip()) >= 15   # every module was walked
 
 
+def test_port_serving_and_obs_modules_stand_alone():
+    """The serving and observability modules copied from the JAX package
+    import with ``jax`` blocked and bring in no ``repro`` module."""
+    probe = _PROBE.replace("print(len(names))", "print(' '.join(names))")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", probe], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    names = set(out.stdout.split())
+    assert names >= {"repro_torch.serve.engine", "repro_torch.serve.cache",
+                     "repro_torch.serve.batcher", "repro_torch.serve.metrics",
+                     "repro_torch.obs.trace", "repro_torch.obs.metrics",
+                     "repro_torch.obs.telemetry"}
+
+
 def test_port_sources_name_no_jax_or_repro():
     """No source file of the port spells an import of jax or of repro."""
     for path in (SRC / "repro_torch").rglob("*.py"):

@@ -129,10 +129,13 @@ def test_session_weights_and_warm_start(road_instance):
 
 
 def test_session_later_slices_raise(grid_instance):
+    """The sharded backend, presolve and delta staging of the fused-ELL
+    weight table are later slices (the scanned backend is ported)."""
     s = MinCutSession(Problem.build(_port(grid_instance), 1),
                       IRLSConfig(precond="jacobi", n_irls=1), device="cpu")
-    for kwargs in ({"backend": "scanned"}, {"backend": "sharded"},
-                   {"presolve": True}, {"delta_key": "tenant"}):
+    fused_ell = IRLSConfig(precond="jacobi", n_irls=1, layout="ell")
+    for kwargs in ({"backend": "sharded"}, {"presolve": True},
+                   {"delta_key": "tenant", "cfg": fused_ell}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             s.solve(**kwargs)
     with pytest.raises(ValueError, match="unknown backend"):

@@ -126,6 +126,97 @@ def test_block_diag_matvec_sweep(p, bs):
         np.testing.assert_allclose(y, np.asarray(y_ref), rtol=1e-5, atol=1e-4)
 
 
+# Batches: B lanes over shared indices, against the JAX package's kernels
+# vmapped over the lanes (Pallas interpret mode), at the tolerances of the
+# single-instance sweeps above.
+_B = 3
+
+
+@pytest.mark.parametrize("m,n", [(100, 64), (5000, 300)])
+def test_edge_reweight_batched(m, n):
+    import jax
+
+    rng = np.random.default_rng(7 * m + n)
+    src = rng.integers(0, n, m).astype(np.int32)
+    dst = rng.integers(0, n, m).astype(np.int32)
+    c = rng.uniform(0.1, 3.0, (_B, m)).astype(np.float32)
+    v = rng.uniform(0, 1, (_B, n)).astype(np.float32)
+    jargs, targs = _both(src, dst, c, v)
+    r = ops.edge_reweight_r(*targs, 1e-6)
+    assert r.shape == (_B, m)
+    want = jax.vmap(jops.edge_reweight_r, in_axes=(None, None, 0, 0, None))(
+        *jargs, 1e-6)
+    np.testing.assert_allclose(r.numpy(), np.asarray(want), rtol=3e-5)
+    # each lane is the single-instance result
+    for b in range(_B):
+        assert torch.equal(r[b], ops.edge_reweight_r(*targs[:2], targs[2][b],
+                                                     targs[3][b], 1e-6))
+
+
+@pytest.mark.parametrize("n,k", [(64, 4), (777, 9)])
+def test_ell_kernels_batched(n, k):
+    import jax
+
+    rng = np.random.default_rng(n * k + 1)
+    cols = rng.integers(0, n, size=(n, k)).astype(np.int32)
+    vals = rng.standard_normal((_B, n, k)).astype(np.float32)
+    diag = rng.uniform(1, 3, size=(_B, n)).astype(np.float32)
+    v = rng.standard_normal((_B, n)).astype(np.float32)
+    jargs, targs = _both(cols, vals, diag, v)
+    y = ops.ell_spmv(*targs)
+    assert y.shape == (_B, n)
+    want = jax.vmap(jops.ell_spmv, in_axes=(None, 0, 0, 0))(*jargs)
+    np.testing.assert_allclose(y.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-4)
+
+    c_ell = rng.uniform(0.1, 3.0, size=(_B, n, k)).astype(np.float32)
+    c_ell[rng.uniform(size=(_B, n, k)) < 0.4] = 0.0
+    c_s = rng.uniform(0, 2, size=(_B, n)).astype(np.float32)
+    c_t = rng.uniform(0, 2, size=(_B, n)).astype(np.float32)
+    c_s[rng.uniform(size=(_B, n)) < 0.3] = 0.0
+    vv = rng.uniform(0, 1, size=(_B, n)).astype(np.float32)
+    jargs, targs = _both(cols, c_ell, c_s, c_t, vv)
+    got = ops.fused_ell_sweep(*targs, 1e-6)
+    want = jax.vmap(jops.fused_ell_sweep, in_axes=(None, 0, 0, 0, 0, None))(
+        *jargs, 1e-6)
+    for yt, yj in zip(got, want):
+        assert yt.shape[0] == _B
+        np.testing.assert_allclose(yt.numpy(), np.asarray(yj), rtol=3e-5,
+                                   atol=1e-6)
+
+
+def test_block_jacobi_batched_is_per_lane(road_instance):
+    """A batch's blocks form one flat (B·P) block batch: applying the
+    batched preconditioner equals applying each lane's own."""
+    from repro.graphs import partition as jgp
+    from repro_torch.core import DeviceGraph, laplacian as lap, precond as pc
+    from repro_torch.core.incidence import device_graph_from_instance
+    from repro_torch.graphs.structures import instance_from_arrays
+
+    inst = road_instance
+    pinst = instance_from_arrays(inst.graph.src, inst.graph.dst,
+                                 inst.graph.weight, inst.graph.n,
+                                 inst.s_weight, inst.t_weight)
+    labels = np.sort(jgp.partition_kway(inst.graph, 4))
+    g = device_graph_from_instance(pinst, device="cpu")
+    plan = pc.build_block_plan(pinst.graph.src, pinst.graph.dst, labels, 4,
+                               device="cpu")
+    rng = np.random.default_rng(2)
+    scale = torch.as_tensor(rng.uniform(0.5, 2.0, (_B, 1)), dtype=torch.float32)
+    gb = DeviceGraph(src=g.src, dst=g.dst, c=g.c * scale, c_s=g.c_s * scale,
+                     c_t=g.c_t * scale)
+    rw = lap.initial_weights(gb)
+    x = torch.as_tensor(rng.standard_normal((_B, g.n)), dtype=torch.float32)
+    M = pc.factorize_blocks(plan, rw, explicit_inverse=True)
+    assert M.inv.shape == (_B * plan.p, plan.bs, plan.bs)
+    y = pc.apply_block_jacobi(M, x)
+    for b in range(_B):
+        rw_b = lap.Reweighted(*(t[b] for t in rw))
+        y_b = pc.apply_block_jacobi(pc.factorize_blocks(plan, rw_b, True), x[b])
+        np.testing.assert_allclose(y[b].numpy(), y_b.numpy(), rtol=1e-5,
+                                   atol=1e-6)
+
+
 def test_each_kernel_has_one_plain_version():
     """``ref`` names the functions the solver's plain path runs, so a kernel
     held against its plain version is held against that path; the unfused
@@ -166,7 +257,7 @@ def test_wrappers_take_plain_version_only_on_cpu():
     ops.ell_spmv(torch.zeros((4, 2), dtype=torch.int32), torch.zeros((4, 2)),
                  cpu, cpu)
     assert ops.launches == {"ell_spmv": 0, "fused_ell_sweep": 0,
-                            "block_diag_matvec": 0}
+                            "block_diag_matvec": 0, "edge_reweight": 0}
 
 
 def test_build_names_each_library_by_its_source(monkeypatch, tmp_path):
