@@ -6,7 +6,7 @@
 
 Phases (any failure raises and exits non-zero; there is no CPU path):
 
-1. Build the four CUDA kernels from ``src/repro_torch/kernels/csrc`` with
+1. Build the five CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    nvcc for sm_90a (one nvcc per source, all started together) and print
    the card's name and power limit.
 2. Make the full-width instance: a 26-connected ``side``³ segmentation grid
@@ -64,6 +64,20 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    past convergence amplify the kernels' other summation orders into cut
    gaps of a few 1e-5; fewer IRLS iterations leave the voltages less
    polarized and the gaps larger).
+10. LM serving: ``flash_fwd`` alone at the prefill's shapes (4 × 4096
+    tokens, qwen2-1.5b's 12 query and 2 KV heads, D = 128, bf16, causal)
+    and at a smaller float32 non-causal shape, each entry held against the
+    dense plain version at its own scale, timed beside the plain version,
+    ``scaled_dot_product_attention`` and its bound.  Then the path:
+    ``launch.lm_serve.serve`` of qwen2-1.5b at full width (random weights
+    from a seeded generator on the card, ``use_pallas_attention``) on 4
+    prompts of 4096 synthetic tokens, 64 greedy tokens each: ``flash_fwd``
+    must launch once per layer in prefill and never in decode.  The same
+    prefill on the plain path (the blockwise attention, on the card) must
+    give the same last-position logits within 5e-2 of max |logits| and the
+    same first token wherever its top-2 margin exceeds twice the measured
+    logit gap.  Last, one prefill and 8 decode steps are traced with
+    ``torch.profiler``: device time by kernel and the device's busy share.
 
 TF32 is switched off for matmuls and cuDNN, so every float32 product is a
 full float32 product.  The last two lines of standard output are the
@@ -83,10 +97,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 
-# NVIDIA H100 SXM data sheet: HBM3 rate and float32 rate outside the tensor
-# cores (the kernels do float32 CUDA-core arithmetic)
+# NVIDIA H100 SXM data sheet: HBM3 rate, float32 rate outside the tensor
+# cores (the graph kernels do float32 CUDA-core arithmetic) and the dense
+# bf16 tensor-core rate (the attention kernel's bf16 products)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_BF16_TC_FLOP_PER_S = 989e12
 
 KERNELS = {
     "ell_spmv": ("src/repro_torch/kernels/csrc/ell_spmv.cu",
@@ -97,12 +113,28 @@ KERNELS = {
                           "src/repro/kernels/block_diag_matmul.py:41"),
     "edge_reweight": ("src/repro_torch/kernels/csrc/edge_reweight.cu",
                       "src/repro/kernels/edge_reweight.py:59"),
+    "flash_fwd": ("src/repro_torch/kernels/csrc/flash_fwd.cu",
+                  "src/repro/kernels/flash_attention.py:81"),
 }
 # bursts of 8 requests per serving tenant (the first cold, the rest warm)
 SERVE_ROUNDS = 2
+# LM serving traffic: 4 prompts of 4096 tokens, 64 tokens generated for each
+LM_BATCH, LM_SEQ, LM_GEN = 4, 4096, 64
 # the path whose launches the kernels line reports for each kernel
 LAUNCH_PATH = {"ell_spmv": "main", "fused_ell_sweep": "main",
-               "block_diag_matvec": "main", "edge_reweight": "serve"}
+               "block_diag_matvec": "main", "edge_reweight": "serve",
+               "flash_fwd": "lm"}
+# no launches of any kernel; a path's expected counts update this
+NO_LAUNCHES = {name: 0 for name in KERNELS}
+# flash_fwd in bf16 against the dense plain version, of each entry's scale
+# Σ_j p_ij·|v_j|: three roundings to bf16 at u = 2^-8 (p before the p·v
+# product on the kernel's side, out on both sides) plus 1e-4 for the float32
+# sums and exponentials; in float32 the Pallas sweep's 3e-5
+FLASH_RTOL = {"bfloat16": 3 * 2.0 ** -8 + 1e-4, "float32": 3e-5}
+# the LM path's last-position logits, kernel vs plain attention path, of
+# max |logits|: the two paths round to bf16 at other places (p before p·v,
+# the attention output) in every layer, and the gaps pass through the rest
+LOGIT_RTOL = 5e-2
 
 
 def log(*args):
@@ -153,11 +185,12 @@ def time_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(n_bytes: float, n_flops: float):
+def bound(n_bytes: float, n_flops: float, peak_flops: float = PEAK_F32_FLOP_PER_S):
     """Least time the card could take: bytes over the memory rate or flops
-    over the float32 rate, whichever is larger."""
+    over the peak rate of their type (float32 unless given), whichever is
+    larger."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_flops / PEAK_F32_FLOP_PER_S * 1e3
+    t_ops = n_flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -505,8 +538,7 @@ def serve_run(tenants, rounds: int, seed: int, rounding: str = "sweep",
     if stats["batch_sizes"] != [burst] * (rounds * len(tenants)):
         raise AssertionError(f"batches {stats['batch_sizes']}: the bursts "
                              f"did not form full batches")
-    if launches != {"ell_spmv": 0, "fused_ell_sweep": 0,
-                    "block_diag_matvec": 0, "edge_reweight": want}:
+    if launches != dict(NO_LAUNCHES, edge_reweight=want):
         raise AssertionError(f"serving launches {launches}, expected "
                              f"edge_reweight {want} and nothing else")
     if stats["warm"]["hits"] != (rounds - 1) * len(tenants):
@@ -604,7 +636,9 @@ def serving_phase(tenants, rounds: int, seed: int):
         torch.use_deterministic_algorithms(False)
     # the measured run's first volume batch again, traced
     name = next(iter(tenants))
-    prof = profile_batch(meas["sessions"][name], meas["sent"][name][0])
+    sess, ws = meas["sessions"][name], meas["sent"][name][0]
+    prof = profile_call(lambda: sess.solve_batch(ws, rounding=None),
+                        f"one batch of {len(ws)}")
     return dict(wall_s=meas["wall"], launches=meas["launches"],
                 checked_launches=chk["launches"], peak_bytes=meas["peak"],
                 stats={k: stats[k] for k in ("completed", "batches",
@@ -618,13 +652,12 @@ def serving_phase(tenants, rounds: int, seed: int):
                 cfg=dataclasses.asdict(server_cfg(True)))
 
 
-def profile_batch(sess, ws, top: int = 10):
-    """Where one served batch's time goes: ``solve_batch`` of ``ws`` (no
-    rounding) under ``torch.profiler`` on the card.  Returns the wall, the
-    summed device time of the kernels and copies (the device's busy share
-    of the wall; one stream, so they do not overlap) and the kernels that
-    took the most device time.  A trace that holds no device time is reported as
-    such and not read further."""
+def profile_call(fn, label: str, top: int = 10):
+    """Where one call's time goes: ``fn()`` under ``torch.profiler`` on the
+    card.  Returns the wall, the summed device time of the kernels and
+    copies (the device's busy share of the wall; one stream, so they do not
+    overlap) and the kernels that took the most device time.  A trace that
+    holds no device time is reported as such and not read further."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -633,7 +666,7 @@ def profile_batch(sess, ws, top: int = 10):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        sess.solve_batch(ws, rounding=None)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
 
@@ -650,19 +683,21 @@ def profile_batch(sess, ws, top: int = 10):
     host = {e.key: e for e in prof.key_averages()}
     syncs = sum(host[k].count for k in host
                 if k in ("cudaStreamSynchronize", "cudaMemcpyAsync"))
+    launches = host["cudaLaunchKernel"].count if "cudaLaunchKernel" in host else 0
     rows = sorted(events, key=dev_us, reverse=True)[:top]
     out = dict(wall_s=wall, device_busy_s=busy,
                busy_share=busy / wall if wall > 0 else float("nan"),
-               host_syncs_and_copies=syncs,
+               host_syncs_and_copies=syncs, kernel_launch_calls=launches,
                top=[dict(name=e.key[:90], device_ms=dev_us(e) / 1e3,
                          count=e.count) for e in rows])
     if busy == 0:
-        log("[profile] the trace holds no device time; not read further")
+        log(f"[profile] {label}: the trace holds no device time; not read "
+            f"further")
         return out
-    log(f"[profile] one batch of {len(ws)}: wall {wall:.2f} s, kernels and "
-        f"copies {busy:.2f} s on the device (busy share {busy / wall:.3f}, idle "
+    log(f"[profile] {label}: wall {wall:.3f} s, kernels and copies "
+        f"{busy:.3f} s on the device (busy share {busy / wall:.3f}, idle "
         f"{1 - busy / wall:.3f}); cudaStreamSynchronize + cudaMemcpyAsync "
-        f"calls {syncs}")
+        f"calls {syncs}, cudaLaunchKernel calls {launches}")
     for r in out["top"]:
         log(f"[profile]   {r['device_ms']:10.2f} ms  ×{r['count']:6d}  "
             f"{r['name']}")
@@ -721,8 +756,8 @@ def batched_ell_phase(side: int, lanes: int, seed: int):
     # one too) one matvec and one preconditioner apply for r0, then one of
     # each per step
     steps = (n_irls + 1) * (cfg.pcg_max_iters + 1)
-    want = {"ell_spmv": steps, "fused_ell_sweep": n_irls,
-            "block_diag_matvec": steps, "edge_reweight": 0}
+    want = dict(NO_LAUNCHES, ell_spmv=steps, fused_ell_sweep=n_irls,
+                block_diag_matvec=steps)
     log(f"[batched ell] side {side}, B={lanes}, P={n_blocks}: solve_batch "
         f"{wall:.2f} s; launches {launches} (expected {want}); peak device "
         f"memory {peak / 2**30:.2f} GiB")
@@ -746,6 +781,213 @@ def batched_ell_phase(side: int, lanes: int, seed: int):
     return dict(kernels=kern, wall_s=wall, plain_s=t_plain,
                 launches=launches, peak_bytes=peak, max_rel=max(rels),
                 pcg_gap=gap)
+
+
+def flash_flops(bh: int, sq: int, sk: int, d: int, causal: bool) -> int:
+    """The attention forward's flops for this run's mask: two products of
+    2·D flops for every (row, key) pair the mask keeps."""
+    if not causal:
+        pairs = sq * sk
+    elif sq <= sk:
+        pairs = sq * (sq + 1) // 2
+    else:
+        pairs = sk * (sk + 1) // 2 + (sq - sk) * sk
+    return 4 * d * bh * pairs
+
+
+def flash_fwd_alone(cfg, batch: int, seq: int, seed: int):
+    """Phase 10a: ``flash_fwd`` at the LM path's prefill shapes (bf16,
+    causal) against its dense plain version, timed beside it, SDPA and its
+    bound; then a float32 non-causal case at a smaller shape with Sq ≠ Sk;
+    then the regrouping copies around the kernel at the path's shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import layers as nn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    KV, D = cfg.n_kv_heads, cfg.d_head
+    G = cfg.n_heads // KV
+
+    def inputs(bkv, sq, sk, dtype):
+        return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
+                     for shape in ((bkv * G, sq, D), (bkv, sk, D), (bkv, sk, D)))
+
+    def held(name, q, k, v, causal):
+        """The kernel against the plain version, each entry against its own
+        scale; returns (out, lse, max abs err of out)."""
+        kw = dict(g_per_kv=G, causal=causal, scale=D ** -0.5)
+        out, lse = ops.flash_fwd(q, k, v, **kw)
+        want, want_lse = ref.flash_fwd_ref(q, k, v, **kw)
+        s_out, s_lse = ref.flash_fwd_scales(q, k, v, **kw)
+        rtol = FLASH_RTOL[str(q.dtype).split(".")[-1]]
+        err = check_close(f"{name} out", [out.float()], [want.float()], rtol,
+                          [s_out])
+        # lse = m + log l: 1e-5 of |m| + log l + the scores' summation scale
+        check_close(f"{name} lse", [lse], [want_lse], 1e-5, [s_lse])
+        return kw, want, s_out, err
+
+    # -- the path's shapes, bf16, causal
+    q, k, v = inputs(batch * KV, seq, seq, torch.bfloat16)
+    kw, want, s_out, err = held("flash_fwd bf16 causal", q, k, v, True)
+    q4 = q.view(batch, KV * G, seq, D)
+    k4, v4 = k.view(batch, KV, seq, D), v.view(batch, KV, seq, D)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                              enable_gqa=True)
+
+    # the library call is timed as the yardstick only; its gap to the plain
+    # version is logged, not held
+    lib = sdpa().reshape(q.shape).float()
+    log(f"  flash_fwd library (SDPA): worst err/scale "
+        f"{float(((lib - want.float()).abs() / s_out).max()):.3e}")
+    del lib, want, s_out
+    out = dict(
+        max_abs_err=err, shape=[batch * KV * G, seq, D],
+        ms=time_ms(lambda: ops.flash_fwd(q, k, v, **kw), 20),
+        plain_ms=time_ms(lambda: ref.flash_fwd_ref(q, k, v, **kw), 3, warmup=1),
+        library_ms=time_ms(sdpa, 20))
+    t_b = bound(nbytes(q, k, v, q) + q.shape[0] * seq * 4,
+                flash_flops(q.shape[0], seq, seq, D, True),
+                PEAK_BF16_TC_FLOP_PER_S)
+    out.update(bound_ms=t_b[0], bound_by=t_b[1])
+    torch.cuda.empty_cache()
+
+    # -- the regrouping around the kernel: [B, S, H, D] in and out
+    qb = q4.transpose(1, 2).contiguous()
+    kb, vb = k4.transpose(1, 2).contiguous(), v4.transpose(1, 2).contiguous()
+    out["layer_call_ms"] = time_ms(
+        lambda: nn.flash_attention_kernel(qb, kb, vb, causal=True), 20)
+    del q, k, v, q4, k4, v4, qb, kb, vb
+    torch.cuda.empty_cache()
+
+    # -- float32, full attention, Sq ≠ Sk, at a smaller shape
+    q, k, v = inputs(2 * KV, 1024, 1536, torch.float32)
+    kw, _, _, err32 = held("flash_fwd f32 full", q, k, v, False)
+    out["f32"] = dict(max_abs_err=err32, shape=[[*q.shape], [*k.shape]],
+                      ms=time_ms(lambda: ops.flash_fwd(q, k, v, **kw), 10),
+                      bound_ms=bound(nbytes(q, k, v, q) + q.shape[0] * 1024 * 4,
+                                     flash_flops(q.shape[0], 1024, 1536, D,
+                                                 False))[0])
+    del q, k, v
+    torch.cuda.empty_cache()
+    log(f"  flash_fwd {out['shape']}: kernel {out['ms']:.4f} ms, plain "
+        f"{out['plain_ms']:.4f} ms, library (SDPA) {out['library_ms']:.4f} ms, "
+        f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}); the layer's call "
+        f"with its regrouping copies {out['layer_call_ms']:.4f} ms")
+    log(f"  flash_fwd f32 {out['f32']['shape']}: kernel {out['f32']['ms']:.4f} "
+        f"ms, float32 bound {out['f32']['bound_ms']:.4f} ms")
+    return out
+
+
+def lm_phase(cfg, batch: int, seq: int, gen_len: int, seed: int):
+    """Phase 10b-c: the LM serving path at full width through the kernel,
+    then the same prefill and greedy decode on the plain attention path."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.lm import token_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.lm_serve import serve
+    from repro_torch.models import transformer as tr
+
+    dev = torch.device("cuda")
+    t = time.perf_counter()
+    params = tr.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                            device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    t = time.perf_counter()
+    prompts = token_batch(cfg.vocab, batch, seq, seed=seed)
+    data_s = time.perf_counter() - t
+    log(f"[lm] {cfg.name}: {cfg.param_count():,} parameters ({cfg.dtype}) "
+        f"initialized in {init_s:.1f} s; {batch} prompts of {seq} tokens made "
+        f"in {data_s:.1f} s")
+    # warm-up (cuBLAS handles, the kernel's library): a short prompt, not read
+    serve(cfg, params, prompts[:, :128], 2, dev)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    tokens, tm = serve(cfg, params, prompts, gen_len, dev)
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    want = dict(NO_LAUNCHES, flash_fwd=cfg.n_layers)
+    prefill_tps = batch * seq / tm["prefill_s"]
+    decode_tps = batch * (gen_len - 1) / tm["decode_s"]
+    log(f"[lm] serve: prefill {batch}x{seq} in {tm['prefill_s']:.3f} s "
+        f"({prefill_tps:.0f} tok/s), decode {gen_len - 1} steps in "
+        f"{tm['decode_s']:.3f} s ({decode_tps:.1f} tok/s, batch {batch}); "
+        f"peak device memory {peak / 2**30:.2f} GiB")
+    log(f"[lm] launches {launches} (expected {want}: one flash_fwd per layer "
+        f"in prefill, none in decode)")
+    if launches != want:
+        raise AssertionError(f"LM path launches {launches} != {want}")
+    if tokens.shape != (batch, gen_len) or not (
+            (tokens >= 0) & (tokens < cfg.vocab)).all():
+        raise AssertionError(f"generated tokens {tokens.shape} out of range")
+
+    # -- the same prefill through the kernel and on the plain path
+    plain_cfg = dataclasses.replace(cfg, use_pallas_attention=False)
+    toks = torch.as_tensor(prompts, dtype=torch.long, device=dev)
+    logits_k, _ = tr.prefill(params, toks, cfg, pad_cache_to=seq + gen_len)
+    logits_p, _ = tr.prefill(params, toks, plain_cfg, pad_cache_to=seq + gen_len)
+    if not bool(torch.isfinite(logits_k).all()):
+        raise AssertionError("non-finite logits on the kernel path")
+    gap = float((logits_k - logits_p).abs().max())
+    scale = float(logits_p.abs().max())
+    top2 = logits_p.topk(2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    first_k = logits_k.argmax(-1).cpu().numpy()
+    first_p = logits_p.argmax(-1).cpu().numpy()
+    checked = margin > 2 * gap
+    log(f"[lm] last-position logits, kernel vs plain path: max |Δ| {gap:.4e} "
+        f"of max |logits| {scale:.4e} (rel {gap / scale:.3e}, tolerance "
+        f"{LOGIT_RTOL}); first tokens {first_k.tolist()} vs "
+        f"{first_p.tolist()}, top-2 margins {np.round(margin, 4).tolist()}, "
+        f"held where the margin exceeds {2 * gap:.4e}: lanes "
+        f"{np.flatnonzero(checked).tolist()}")
+    if not gap <= LOGIT_RTOL * scale:
+        raise AssertionError(f"logits kernel vs plain: {gap} > {LOGIT_RTOL} × "
+                             f"{scale}")
+    if (first_k[checked] != first_p[checked]).any():
+        raise AssertionError(f"first tokens {first_k} vs plain {first_p}")
+    del logits_k, logits_p
+    torch.cuda.empty_cache()
+    plain_tokens, plain_tm = serve(plain_cfg, params, prompts, gen_len, dev)
+    agree = (tokens == plain_tokens).sum(axis=1).tolist()
+    log(f"[lm] plain path: prefill {plain_tm['prefill_s']:.3f} s, decode "
+        f"{plain_tm['decode_s']:.3f} s; generated tokens equal to the kernel "
+        f"path's, per lane (of {gen_len}): {agree}")
+
+    # -- where the path's time goes: the prefill, then 8 decode steps
+    prof = {"prefill": profile_call(
+        lambda: tr.prefill(params, toks, cfg, pad_cache_to=seq + gen_len),
+        f"LM prefill {batch}x{seq}")}
+    _, cache = tr.prefill(params, toks, cfg, pad_cache_to=seq + gen_len)
+    first = torch.as_tensor(tokens[:, 0], dtype=torch.long, device=dev)
+
+    def decode_steps(n=8):
+        for i in range(n):
+            tr.decode_step(params, cache, first, seq + i, cfg)
+
+    prof["decode_8_steps"] = profile_call(decode_steps, "LM decode, 8 steps")
+    del params, cache
+    torch.cuda.empty_cache()
+    return dict(config=dataclasses.asdict(cfg) | {"dtype": str(cfg.dtype)},
+                batch=batch, seq=seq, gen=gen_len, init_s=init_s,
+                prefill_s=tm["prefill_s"], decode_s=tm["decode_s"],
+                prefill_tok_s=prefill_tps, decode_tok_s=decode_tps,
+                peak_bytes=peak, launches=launches, logit_gap=gap,
+                logit_scale=scale, first_tokens=first_k.tolist(),
+                first_tokens_plain=first_p.tolist(),
+                first_token_lanes_held=np.flatnonzero(checked).tolist(),
+                plain_prefill_s=plain_tm["prefill_s"],
+                plain_decode_s=plain_tm["decode_s"], tokens_agree=agree,
+                profile=prof)
 
 
 def main(argv=None) -> int:
@@ -839,8 +1081,8 @@ def main(argv=None) -> int:
     peak = torch.cuda.max_memory_allocated()
     cut, diag, tm = res.cut, res.diagnostics, res.timings
     steps = sum(1 + it for it in diag.pcg_iters)   # r0 matvec + one per step
-    want = {"fused_ell_sweep": args.n_irls, "ell_spmv": steps,
-            "block_diag_matvec": steps, "edge_reweight": 0}
+    want = dict(NO_LAUNCHES, fused_ell_sweep=args.n_irls, ell_spmv=steps,
+                block_diag_matvec=steps)
     log(f"[main] solve {wall_s:.2f} s: Problem.build and connectivity check "
         f"{wall_s - tm['total']:.2f} s, setup {tm['setup']:.2f} s, IRLS "
         f"{tm['irls']:.2f} s, rounding {tm['rounding']:.2f} s")
@@ -939,8 +1181,17 @@ def main(argv=None) -> int:
     report["batched_ell"] = batched_ell_phase(args.ell_side, 4, args.seed)
     torch.cuda.empty_cache()
 
+    # -- 10. LM serving ----------------------------------------------------------
+    from repro_torch.configs import lm as lm_configs
+
+    lm_cfg = dataclasses.replace(lm_configs.qwen2_1_5b(),
+                                 use_pallas_attention=True)
+    kern["flash_fwd"] = flash_fwd_alone(lm_cfg, LM_BATCH, LM_SEQ, args.seed)
+    report["lm"] = lm_phase(lm_cfg, LM_BATCH, LM_SEQ, LM_GEN, args.seed)
+
     path_launches = {"main": launches, "serve": serve["launches"],
-                     "batched_ell": report["batched_ell"]["launches"]}
+                     "batched_ell": report["batched_ell"]["launches"],
+                     "lm": report["lm"]["launches"]}
     for name in KERNELS:
         if path_launches[LAUNCH_PATH[name]][name] == 0:
             raise AssertionError(f"{name} was not launched on its path")

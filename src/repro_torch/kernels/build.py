@@ -30,6 +30,7 @@ SOURCES = {
     "fused_ell_sweep": "fused_ell_sweep.cu",
     "block_diag_matvec": "block_diag_matvec.cu",
     "edge_reweight": "edge_reweight.cu",
+    "flash_fwd": "flash_fwd.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

@@ -5,9 +5,9 @@ tensors lie on the CPU, and only then.  For CUDA tensors it checks device,
 dtype, shape and contiguity, allocates the outputs, launches the kernel on
 the current stream and raises if the launch fails; it never falls back.
 
-Every wrapper takes one instance or a batch of B same-topology lanes: the
-per-lane tensors carry a leading lane dimension, the index tensors (``cols``,
-``src``, ``dst``) are shared and passed once.
+Every graph-kernel wrapper takes one instance or a batch of B same-topology
+lanes: the per-lane tensors carry a leading lane dimension, the index tensors
+(``cols``, ``src``, ``dst``) are shared and passed once.
 
 ``launches`` counts the kernel launches per wrapper (plain-version calls do
 not count), so a run can show that its path went through the kernels.  The
@@ -26,7 +26,8 @@ from . import build, ref
 from ..core.incidence import eps_sq
 
 launches: Dict[str, int] = {"ell_spmv": 0, "fused_ell_sweep": 0,
-                            "block_diag_matvec": 0, "edge_reweight": 0}
+                            "block_diag_matvec": 0, "edge_reweight": 0,
+                            "flash_fwd": 0}
 _launch_lock = threading.Lock()
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -38,6 +39,8 @@ _SIGNATURES = {
     "block_diag_matvec_f32": ("block_diag_matvec", [_P] * 3 + [_I] * 2 + [_P]),
     "edge_reweight_f32": ("edge_reweight",
                           [_P] * 4 + [_F, _P, _L, _I, _I, _P]),
+    "flash_fwd_bf16": ("flash_fwd", [_P] * 5 + [_I] * 6 + [_F, _P]),
+    "flash_fwd_f32": ("flash_fwd", [_P] * 5 + [_I] * 6 + [_F, _P]),
 }
 _fns: Dict[str, ctypes._CFuncPtr] = {}
 
@@ -228,3 +231,43 @@ def edge_reweight_r(src: torch.Tensor, dst: torch.Tensor, c: torch.Tensor,
             c.data_ptr(), v.data_ptr(), eps_sq(eps), r.data_ptr(), m, nv, b)
     _count("edge_reweight")
     return r
+
+
+# head dims the attention kernel is compiled for
+FLASH_HEAD_DIMS = (64, 128)
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              g_per_kv: int, causal: bool = True, scale: float = 1.0):
+    """GQA flash-attention forward: (out [BH, Sq, D] in q's dtype,
+    lse [BH, Sq] float32) from q [BH, Sq, D] and k, v [BKV, Sk, D] with
+    BH = BKV·G; query head bh reads kv head bh // G.  bfloat16 or float32,
+    D in ``FLASH_HEAD_DIMS``, any Sq and Sk ≥ 1."""
+    if _on_cpu(q, k, v):
+        return ref.flash_fwd_ref(q, k, v, g_per_kv=g_per_kv, causal=causal,
+                                 scale=scale)
+    _require(q.dim() == k.dim() == v.dim() == 3,
+             f"q, k, v must be 3-D, got {tuple(q.shape)}, {tuple(k.shape)}, "
+             f"{tuple(v.shape)}")
+    bh, sq, d = q.shape
+    bkv, sk, _ = k.shape
+    _require(g_per_kv >= 1 and bh == bkv * g_per_kv and k.shape == v.shape
+             and k.shape[2] == d and sk >= 1,
+             f"shapes: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+             f"{tuple(v.shape)}, g_per_kv {g_per_kv}")
+    _require(d in FLASH_HEAD_DIMS, f"head dim {d} not in {FLASH_HEAD_DIMS}")
+    _require(q.dtype in (torch.bfloat16, torch.float32),
+             f"q must be bfloat16 or float32, got {q.dtype}")
+    _require(k.dtype == v.dtype == q.dtype, "q, k and v must share one dtype")
+    _contiguous(q=q, k=k, v=v)
+    # the kernel moves 16 bytes per load
+    _require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
+             "q, k and v must start on a 16-byte boundary")
+    out = torch.empty_like(q)
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    symbol = "flash_fwd_bf16" if q.dtype == torch.bfloat16 else "flash_fwd_f32"
+    _launch(symbol, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), bh, sq, sk, d, g_per_kv,
+            int(causal), float(scale))
+    _count("flash_fwd")
+    return out, lse

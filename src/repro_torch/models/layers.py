@@ -1,0 +1,198 @@
+"""Shared neural-net layers of the LM stack, inference half (PyTorch).
+
+The port of ``repro/models/layers.py``: plain functions over tensors, the
+same names, signatures and layouts (q [B, S, H, D], k and v [B, S, KV, D]).
+The attention forward is blockwise with an online softmax, so a long
+prefill never holds an [Sq, Sk] score matrix; windowed (local) layers take
+a banded kv slice per q chunk.  ``flash_attention(use_pallas=True)`` routes
+full-attention forwards through the hand-written CUDA kernel
+(``kernels/csrc/flash_fwd.cu``).  The JAX package's ``lax.map`` and
+``lax.scan`` over chunks are Python loops here.
+
+Not ported yet (ROADMAP queue 1, item 13): the flash backward and its custom
+VJP, the MoE layers, ``embedding_bag*`` and ``mlp``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+
+NEG_INF = -1e30
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + w.float())).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float = 10000.0) -> torch.Tensor:
+    """Rotary embedding.  x: [..., S, H, D], positions: [..., S] (int)."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = torch.exp(-math.log(theta)
+                      * torch.arange(half, dtype=torch.float32, device=x.device)
+                      / half)
+    ang = positions[..., None].float() * freqs          # [..., S, half]
+    cos = torch.cos(ang)[..., None, :]                  # [..., S, 1, half]
+    sin = torch.sin(ang)[..., None, :]
+    x1f, x2f = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _tile_logits(qc, kc, scale, q_pos, k_pos, causal, window):
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qc.float(), kc.float()) * scale
+    msk = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                     device=qc.device)
+    if causal:
+        msk &= k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        msk &= k_pos[None, :] > q_pos[:, None] - window
+    return logits + torch.where(msk, 0.0, NEG_INF)[None, None, None]
+
+
+def _flash_fwd_impl(q, k, v, *, causal, window, q_offset, q_chunk, k_chunk,
+                    scale):
+    """Returns (out [B,Sq,KV,G,D] float32, lse [B,KV,G,Sq])."""
+    B, Sq, KV, G, D = q.shape
+    Sk = k.shape[1]
+    nq = Sq // q_chunk
+    qr = q.reshape(B, nq, q_chunk, KV, G, D)
+    banded = window is not None and window + q_chunk < Sk
+    w_len = min(window + q_chunk, Sk) if window is not None else Sk
+    dev = q.device
+    outs, lses = [], []
+    for i in range(nq):
+        qc = qr[:, i]
+        q_start = q_offset + i * q_chunk
+        q_pos = q_start + torch.arange(q_chunk, device=dev)
+        if banded:
+            start = min(max(q_start + q_chunk - w_len, 0), Sk - w_len)
+            logits = _tile_logits(qc, k[:, start:start + w_len], scale, q_pos,
+                                  start + torch.arange(w_len, device=dev),
+                                  causal, window)
+            m = logits.amax(dim=-1)
+            p = torch.exp(logits - m[..., None])
+            l = p.sum(dim=-1)
+            o = torch.einsum("bkgqs,bskd->bkgqd", p,
+                             v[:, start:start + w_len].float())
+            outs.append(o / l.clamp_min(1e-30)[..., None])
+            lses.append(m + torch.log(l.clamp_min(1e-30)))
+            continue
+        m_run = torch.full((B, KV, G, q_chunk), NEG_INF, dtype=torch.float32,
+                           device=dev)
+        l_run = torch.zeros((B, KV, G, q_chunk), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, KV, G, q_chunk, D), dtype=torch.float32, device=dev)
+        for j in range(Sk // k_chunk):
+            ks = slice(j * k_chunk, (j + 1) * k_chunk)
+            logits = _tile_logits(qc, k[:, ks], scale, q_pos,
+                                  j * k_chunk + torch.arange(k_chunk, device=dev),
+                                  causal, window)
+            m_new = torch.maximum(m_run, logits.amax(dim=-1))
+            p = torch.exp(logits - m_new[..., None])
+            c1 = torch.exp(m_run - m_new)
+            l_run = l_run * c1 + p.sum(dim=-1)
+            acc = acc * c1[..., None] + torch.einsum("bkgqs,bskd->bkgqd", p,
+                                                     v[:, ks].float())
+            m_run = m_new
+        outs.append(acc / l_run.clamp_min(1e-30)[..., None])
+        lses.append(m_run + torch.log(l_run.clamp_min(1e-30)))
+    out = torch.stack(outs, dim=1)                       # [B,nq,KV,G,Qc,D]
+    out = torch.movedim(out, -2, 2).reshape(B, Sq, KV, G, D)
+    lse = torch.movedim(torch.stack(lses, dim=1), 1, -2).reshape(B, KV, G, Sq)
+    return out, lse
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0, q_chunk: int = 512,
+                    k_chunk: int = 1024, scale: Optional[float] = None,
+                    use_pallas: bool = False) -> torch.Tensor:
+    """Flash attention with GQA, causal masking and sliding windows.
+
+    q: [B, Sq, H, D]; k, v: [B, Sk, KV, D] with H = KV·G.  Windowed layers
+    take a banded kv slice per q chunk (compute O(S·window)).
+
+    ``use_pallas=True`` routes the forward of full-attention layers
+    (``window is None``, ``q_offset == 0``) through the hand-written CUDA
+    kernel (``flash_attention_kernel``); windowed layers stay on the banded
+    path.  The name is the JAX package's, which routes to its Pallas kernel."""
+    B, Sq, H, D = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    q_chunk = min(q_chunk, Sq)
+    k_chunk = min(k_chunk, k.shape[1])
+    if Sq % q_chunk or k.shape[1] % k_chunk:
+        raise ValueError(f"chunks must divide the sequences: Sq {Sq}, q_chunk "
+                         f"{q_chunk}, Sk {k.shape[1]}, k_chunk {k_chunk}")
+    if use_pallas and window is None and q_offset == 0:
+        return flash_attention_kernel(q, k, v, causal=causal, scale=scale)
+    out, _ = _flash_fwd_impl(q.reshape(B, Sq, KV, G, D), k, v, causal=causal,
+                             window=window, q_offset=q_offset, q_chunk=q_chunk,
+                             k_chunk=k_chunk, scale=float(scale))
+    return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           *, causal: bool = True,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """The full-attention forward through ``ops.flash_fwd`` (the counterpart
+    of ``flash_attention_pallas``).  q: [B, Sq, H, D]; k, v: [B, Sk, KV, D].
+    The heads are regrouped into the kernel's [B·KV·G, S, D] layout (a copy
+    of q, k and v) and the output copied back."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    q2 = (q.reshape(B, Sq, KV, G, D).permute(0, 2, 3, 1, 4)
+          .reshape(B * KV * G, Sq, D).contiguous())
+    k2 = k.permute(0, 2, 1, 3).reshape(B * KV, Sk, D).contiguous()
+    v2 = v.permute(0, 2, 1, 3).reshape(B * KV, Sk, D).contiguous()
+    out, _ = ops.flash_fwd(q2, k2, v2, g_per_kv=G, causal=causal,
+                           scale=float(scale))
+    out = (out.reshape(B, KV, G, Sq, D).permute(0, 3, 1, 2, 4)
+           .reshape(B, Sq, H, D))
+    return out.to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len: int,
+                     window: Optional[int] = None,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """Single-step decode: q: [B, 1, H, D] vs cache [B, S, KV, D].
+
+    cache_len: the number of valid cache entries (new token position =
+    cache_len).  Returns [B, 1, H, D].  The products read the cache in its
+    own dtype and sum in float32, as ``preferred_element_type=float32``
+    does: the float32 copy is one layer's cache slice, made and dropped per
+    call."""
+    B, _, H, D = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    qr = q.reshape(B, KV, G, D)
+    logits = torch.einsum("bkgd,bskd->bkgs", qr.float(), k_cache.float()) * scale
+    pos = torch.arange(S, device=q.device)
+    valid = pos[None, :] < cache_len          # attend to the filled prefix
+    if window is not None:
+        valid = valid & (pos[None, :] >= cache_len - window)
+    logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
+           w2: torch.Tensor) -> torch.Tensor:
+    """SwiGLU FFN: (silu(x@w1) ⊙ (x@w3)) @ w2."""
+    return (F.silu(x @ w1) * (x @ w3)) @ w2

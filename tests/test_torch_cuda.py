@@ -234,3 +234,77 @@ def test_solve_batch_through_kernels_matches_plain_path(cuda, grid_instance):
     for g, w in zip(got, want):
         assert np.isfinite(g.voltages).all()
         assert g.cut_value == pytest.approx(w.cut_value, rel=1e-4)
+
+
+def _flash_inputs(dev, rng, bkv, g, sq, sk, d, dtype):
+    td = getattr(torch, dtype)
+    q = rng.standard_normal((bkv * g, sq, d)).astype(np.float32)
+    k = rng.standard_normal((bkv, sk, d)).astype(np.float32)
+    v = rng.standard_normal((bkv, sk, d)).astype(np.float32)
+    return tuple(t.to(td) for t in _dev(dev, q, k, v))
+
+
+def _check_flash(q, k, v, g, causal, rtol):
+    """The kernel against the dense plain version, each entry against its
+    own scale (``ref.flash_fwd_scales``); lse at rel 1e-5."""
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    kw = dict(g_per_kv=g, causal=causal, scale=scale)
+    before = ops.launches["flash_fwd"]
+    out, lse = ops.flash_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_fwd"] == before + 1
+    want, want_lse = ref.flash_fwd_ref(q, k, v, **kw)
+    s_out, s_lse = ref.flash_fwd_scales(q, k, v, **kw)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert lse.dtype == torch.float32 and lse.shape == q.shape[:2]
+    err = (out.float() - want.float()).abs()
+    assert bool((err <= rtol * s_out).all()), float((err / s_out).max())
+    err = (lse - want_lse).abs()
+    assert bool((err <= 1e-5 * s_lse).all()), float((err / s_lse).max())
+
+
+# float32: 3e-5 of each entry's scale (the Pallas sweep's tolerance; sums in
+# another order).  bfloat16: three roundings to bf16 at u = 2^-8 (p before
+# the p·v product on the kernel's side, out on both sides), plus 1e-4 for
+# the float32 sums and exponentials.  Sq = Sk = 200 is not a multiple of the
+# kernel's 64-row tile.
+_FLASH_RTOL = {"float32": 3e-5, "bfloat16": 3 * 2.0 ** -8 + 1e-4}
+
+
+@pytest.mark.parametrize("g", [1, 2, 6])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_fwd_kernel(cuda, g, d, causal, dtype):
+    rng = np.random.default_rng(g * d + causal)
+    q, k, v = _flash_inputs(cuda, rng, 2, g, 200, 200, d, dtype)
+    _check_flash(q, k, v, g, causal, _FLASH_RTOL[dtype])
+
+
+@pytest.mark.parametrize("sq,sk,causal", [(1, 1, True), (64, 64, True),
+                                          (512, 512, True), (96, 333, False),
+                                          (300, 17, False), (130, 70, True)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_fwd_kernel_lengths(cuda, sq, sk, causal, dtype):
+    """Tile edges: one row, exact tiles, Sq ≠ Sk (causal aligns position 0
+    of q with position 0 of k, as the TPU kernel does)."""
+    rng = np.random.default_rng(sq + sk)
+    q, k, v = _flash_inputs(cuda, rng, 3, 2, sq, sk, 128, dtype)
+    _check_flash(q, k, v, 2, causal, _FLASH_RTOL[dtype])
+
+
+def test_flash_fwd_rejects_bad_inputs(cuda):
+    q = torch.zeros((4, 8, 128), dtype=torch.bfloat16, device=cuda)
+    kv = torch.zeros((2, 8, 128), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_fwd(q[..., :32].contiguous(), kv[..., :32].contiguous(),
+                      kv[..., :32].contiguous(), g_per_kv=2)
+    with pytest.raises(ValueError, match="shapes"):
+        ops.flash_fwd(q, kv, kv, g_per_kv=3)
+    with pytest.raises(ValueError, match="dtype"):
+        ops.flash_fwd(q, kv.float(), kv, g_per_kv=2)
+    with pytest.raises(ValueError, match="float32"):
+        ops.flash_fwd(q.half(), kv.half(), kv.half(), g_per_kv=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), kv, kv,
+                      g_per_kv=2)

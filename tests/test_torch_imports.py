@@ -49,6 +49,22 @@ def test_port_serving_and_obs_modules_stand_alone():
                      "repro_torch.obs.telemetry"}
 
 
+def test_port_lm_modules_stand_alone():
+    """The LM serving stack (models, configs, the token pipeline and the
+    serving driver) imports with ``jax`` blocked and brings in no ``repro``
+    module."""
+    probe = _PROBE.replace("print(len(names))", "print(' '.join(names))")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", probe], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    names = set(out.stdout.split())
+    assert names >= {"repro_torch.models.layers",
+                     "repro_torch.models.transformer",
+                     "repro_torch.configs.lm", "repro_torch.configs.registry",
+                     "repro_torch.data.lm", "repro_torch.launch.lm_serve"}
+
+
 def test_port_sources_name_no_jax_or_repro():
     """No source file of the port spells an import of jax or of repro."""
     for path in (SRC / "repro_torch").rglob("*.py"):

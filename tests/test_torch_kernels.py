@@ -256,8 +256,14 @@ def test_wrappers_take_plain_version_only_on_cpu():
                               cpu[:, None])
     ops.ell_spmv(torch.zeros((4, 2), dtype=torch.int32), torch.zeros((4, 2)),
                  cpu, cpu)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        ops.flash_fwd(*(torch.empty((2, 4, 64), device="meta"),) * 3,
+                      g_per_kv=1)
+    ops.flash_fwd(torch.zeros((2, 4, 8)), torch.zeros((1, 4, 8)),
+                  torch.zeros((1, 4, 8)), g_per_kv=2)
     assert ops.launches == {"ell_spmv": 0, "fused_ell_sweep": 0,
-                            "block_diag_matvec": 0, "edge_reweight": 0}
+                            "block_diag_matvec": 0, "edge_reweight": 0,
+                            "flash_fwd": 0}
 
 
 def test_build_names_each_library_by_its_source(monkeypatch, tmp_path):
