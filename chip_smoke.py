@@ -7,8 +7,10 @@
 Phases (any failure raises and exits non-zero; there is no CPU path):
 
 1. Build the five CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-   nvcc for sm_90a (one nvcc per source, all started together) and print
-   the card's name and power limit.
+   nvcc for sm_90a (one nvcc per source, all started together), keep the
+   ptxas lines (registers, spills) of the two kernels redesigned for Hopper
+   and count the HGMMA instructions in the attention kernel's SASS (there
+   must be some), and print the card's name and power limit.
 2. Make the full-width instance: a 26-connected ``side``³ segmentation grid
    (the repo's grid3d family, the shape of the paper's UWO MRI volumes)
    with 8×8×8 voxel boxes as the block-Jacobi partition.
@@ -17,7 +19,8 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    from a seeded ``torch.Generator``), held against its plain PyTorch
    version, entry by entry against the entry's own scale, then timed with
    CUDA events beside the plain version, its bound and one PyTorch library
-   call computing the same function where there is one.
+   call computing the same function where there is one; ``ell_spmv``'s
+   share of its bound and its time over the CSR call are logged.
 4. The main path: ``pirmcut``'s two steps (``Problem.build``, then
    ``MinCutSession.solve``, whose timings give the setup, IRLS and rounding
    seconds) with the kernel config on the card, launch counters set to 0
@@ -59,16 +62,20 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
 9. The batched ELL path: ``solve_batch`` on B = 4 lanes of a 48³ grid in the
    kernel config of phase 4 (block plan of 8×8×8 boxes, the default fixed
    schedule), with the batched ``ell_spmv``/``fused_ell_sweep`` held against
-   their plain versions first; the launches must be the fixed schedule's,
+   their plain versions first (``ell_spmv`` also timed beside the B lanes as
+   one block-diagonal CSR ``torch.mv``); the launches must be the fixed schedule's,
    and the cuts the plain path's within rel 1e-4 (the schedule's CG steps
    past convergence amplify the kernels' other summation orders into cut
    gaps of a few 1e-5; fewer IRLS iterations leave the voltages less
    polarized and the gaps larger).
 10. LM serving: ``flash_fwd`` alone at the prefill's shapes (4 × 4096
     tokens, qwen2-1.5b's 12 query and 2 KV heads, D = 128, bf16, causal)
-    and at a smaller float32 non-causal shape, each entry held against the
-    dense plain version at its own scale, timed beside the plain version,
-    ``scaled_dot_product_attention`` and its bound.  Then the path:
+    and at a smaller float32 non-causal shape, in the model's [B, S, H, D]
+    layout read in place (the 3-D [B·H, S, D] call on the regrouped tensors
+    must give the same bytes), each entry held against the dense plain
+    version at its own scale, timed in both layouts beside the plain
+    version, ``scaled_dot_product_attention``, its bound (TFLOP/s and share
+    logged) and the layer's call.  Then the path:
     ``launch.lm_serve.serve`` of qwen2-1.5b at full width (random weights
     from a seeded generator on the card, ``use_pallas_attention``) on 4
     prompts of 4096 synthetic tokens, 64 greedy tokens each: ``flash_fwd``
@@ -167,6 +174,38 @@ def segmentation_grid(side: int, seed: int):
     return gen.segmentation_instance(g, (side,) * 3, seed=seed + 1)
 
 
+# the kernels redesigned for Hopper: their ptxas lines go to the report
+REDESIGNED = ("flash_fwd", "ell_spmv")
+
+
+def build_facts(built) -> dict:
+    """What the compiler says of the redesigned kernels: per kernel, the
+    ptxas lines of each entry function (registers, shared memory, spills)
+    and the count of HGMMA (wgmma) instructions in its library's SASS.
+    Fails if the attention kernel's SASS holds no HGMMA."""
+    from repro_torch.kernels import build
+
+    facts = {}
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    for name in REDESIGNED:
+        lines = [ln.strip() for ln in built.get(name, {}).get("log", "").splitlines()
+                 if any(w in ln for w in ("Compiling entry", "registers",
+                                          "spill", "C75"))]
+        sass = subprocess.run([str(cuobjdump), "-sass",
+                               str(build.library_path(name))],
+                              capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+        facts[name] = dict(ptxas=lines, hgmma=sass.count("HGMMA"))
+        spills = [ln for ln in lines if "spill" in ln and not
+                  ln.startswith("0 bytes stack frame, 0 bytes spill")]
+        log(f"[build] {name}: {sum('registers' in ln for ln in lines)} entry "
+            f"functions, {len(spills)} with spills; {facts[name]['hgmma']} "
+            f"HGMMA instructions in its SASS")
+    if facts["flash_fwd"]["hgmma"] == 0:
+        raise AssertionError("flash_fwd's library has no HGMMA instruction")
+    return facts
+
+
 def time_ms(fn, reps: int, warmup: int = 3) -> float:
     """Mean milliseconds per call over ``reps`` back-to-back calls, between
     two CUDA events, after ``warmup`` calls."""
@@ -255,11 +294,7 @@ def kernels_alone(prob, inst, cfg, seed: int):
     scale = [ref.ell_spmv_ref(cols, vals.abs(), diag.abs(), v.abs())]
     err = check_close("ell_spmv", [y], [ref.ell_spmv_ref(cols, vals, diag, v)],
                       1e-5, scale)
-    rows = torch.arange(n, device=dev)
-    idx = torch.stack([torch.cat([rows[:, None].expand(n, k)[valid], rows]),
-                       torch.cat([cols[valid].long(), rows])])
-    csr = torch.sparse_coo_tensor(idx, torch.cat([vals[valid], diag]),
-                                  (n, n)).coalesce().to_sparse_csr()
+    csr = ell_csr(cols, valid, vals, diag)
     check_close("ell_spmv library (CSR mv)", [torch.mv(csr, v)], [y], 1e-5,
                 scale)
     t_b = bound(nbytes(cols, vals, diag, v, y), 2 * nnz + 2 * n)
@@ -269,7 +304,8 @@ def kernels_alone(prob, inst, cfg, seed: int):
         plain_ms=time_ms(lambda: ref.ell_spmv_ref(cols, vals, diag, v), 20),
         library_ms=time_ms(lambda: torch.mv(csr, v), 100),
         bound_ms=t_b[0], bound_by=t_b[1])
-    del vals, diag, csr, idx, scale
+    log_share("ell_spmv", out["ell_spmv"], "CSR mv")
+    del vals, diag, csr, scale
 
     # -- fused_ell_sweep: the instance's weights, voltages from the seed
     c_ell = lap.ell_edge_weights(plan, g.c)
@@ -335,6 +371,35 @@ def kernels_alone(prob, inst, cfg, seed: int):
             f"{r['plain_ms']:.4f} ms, library {lib} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     return out
+
+
+def log_share(name, r, library):
+    """Logs a kernel's share of its bound and its time over the library
+    call's, and keeps both in its record."""
+    r["bound_share"] = r["bound_ms"] / r["ms"]
+    r["vs_library"] = r["ms"] / r["library_ms"]
+    log(f"  {name}: {r['ms']:.4f} ms, {r['bound_share']:.3f} of its bound "
+        f"({r['bound_ms']:.4f} ms), {r['vs_library']:.3f}x the {library} "
+        f"call ({r['library_ms']:.4f} ms)")
+
+
+def ell_csr(cols, valid, vals, diag):
+    """The ELL matrix (one lane, or B lanes as one block-diagonal matrix of
+    B·n rows) as a CSR tensor for ``torch.mv``: the library call computing
+    the same product."""
+    import torch
+
+    n, k = cols.shape
+    lanes = 1 if vals.dim() == 2 else vals.shape[0]
+    vals, diag = vals.reshape(lanes, n, k), diag.reshape(lanes, n)
+    rows = torch.arange(n, device=cols.device)
+    r = torch.cat([rows[:, None].expand(n, k)[valid], rows])
+    c = torch.cat([cols[valid].long(), rows])
+    off = (torch.arange(lanes, device=cols.device) * n)[:, None]
+    idx = torch.stack([(r[None] + off).flatten(), (c[None] + off).flatten()])
+    val = torch.cat([vals[:, valid], diag], dim=1).flatten()
+    return torch.sparse_coo_tensor(idx, val, (lanes * n, lanes * n)
+                                   ).coalesce().to_sparse_csr()
 
 
 def kernel_entry(err, shape, fn, plain, reps, plain_reps, bound_ms):
@@ -426,7 +491,14 @@ def batched_ell_kernels(prob, lanes: int, eps: float, seed: int):
         err, vals.shape, lambda: ops.ell_spmv(cols, vals, diag, v),
         lambda: ref.ell_spmv_ref(cols, vals, diag, v), 100, 20,
         bound(nbytes(cols, vals, diag, v, y), lanes * (2 * nnz + 2 * n)))
-    del vals, diag, y, scale
+    # the library call: the B lanes as one block-diagonal CSR matrix
+    csr = ell_csr(cols, valid, vals, diag)
+    vf = v.flatten()
+    check_close(f"ell_spmv B={lanes} library (CSR mv)",
+                [torch.mv(csr, vf).view(lanes, n)], [y], 1e-5, scale)
+    out["ell_spmv"]["library_ms"] = time_ms(lambda: torch.mv(csr, vf), 100)
+    log_share(f"ell_spmv B={lanes}", out["ell_spmv"], "block-diagonal CSR mv")
+    del vals, diag, y, scale, csr
     c = g.c * (0.8 + 0.4 * torch.rand((lanes, g.m), generator=gen, device=dev))
     c_ell = lap.ell_edge_weights(plan, c)
     c_s = g.c_s.expand(lanes, n).contiguous()
@@ -797,9 +869,10 @@ def flash_flops(bh: int, sq: int, sk: int, d: int, causal: bool) -> int:
 
 def flash_fwd_alone(cfg, batch: int, seq: int, seed: int):
     """Phase 10a: ``flash_fwd`` at the LM path's prefill shapes (bf16,
-    causal) against its dense plain version, timed beside it, SDPA and its
-    bound; then a float32 non-causal case at a smaller shape with Sq ≠ Sk;
-    then the regrouping copies around the kernel at the path's shapes."""
+    causal) against its dense plain version, in the path's own [B, S, H, D]
+    layout read in place and in the 3-D [B·H, S, D] one; timed in both
+    beside the plain version, SDPA, its bound and the layer's call; then a
+    float32 non-causal case at a smaller shape with Sq ≠ Sk."""
     import torch
     import torch.nn.functional as F
 
@@ -811,29 +884,40 @@ def flash_fwd_alone(cfg, batch: int, seq: int, seed: int):
     KV, D = cfg.n_kv_heads, cfg.d_head
     G = cfg.n_heads // KV
 
-    def inputs(bkv, sq, sk, dtype):
+    def inputs(b, sq, sk, dtype):
+        """q [B, Sq, H, D], k, v [B, Sk, KV, D]: the model's layout."""
         return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
-                     for shape in ((bkv * G, sq, D), (bkv, sk, D), (bkv, sk, D)))
+                     for shape in ((b, sq, KV * G, D), (b, sk, KV, D),
+                                   (b, sk, KV, D)))
 
     def held(name, q, k, v, causal):
-        """The kernel against the plain version, each entry against its own
-        scale; returns (out, lse, max abs err of out)."""
+        """The kernel on the model's layout against the plain version on
+        the regrouped tensors, each entry against its own scale; then the
+        3-D call on those tensors, which must give the same bytes.  Returns
+        (kwargs, the 3-D tensors, plain out, its scale, max abs err)."""
         kw = dict(g_per_kv=G, causal=causal, scale=D ** -0.5)
         out, lse = ops.flash_fwd(q, k, v, **kw)
-        want, want_lse = ref.flash_fwd_ref(q, k, v, **kw)
-        s_out, s_lse = ref.flash_fwd_scales(q, k, v, **kw)
+        q3, k3, v3 = (t.contiguous() for t in ops._regroup(q, k, v))
+        want, want_lse = ref.flash_fwd_ref(q3, k3, v3, **kw)
+        s_out, s_lse = ref.flash_fwd_scales(q3, k3, v3, **kw)
         rtol = FLASH_RTOL[str(q.dtype).split(".")[-1]]
-        err = check_close(f"{name} out", [out.float()], [want.float()], rtol,
+        out3 = ops._regroup(out, k, v)[0]
+        err = check_close(f"{name} out", [out3.float()], [want.float()], rtol,
                           [s_out])
         # lse = m + log l: 1e-5 of |m| + log l + the scores' summation scale
         check_close(f"{name} lse", [lse], [want_lse], 1e-5, [s_lse])
-        return kw, want, s_out, err
+        got3, lse3 = ops.flash_fwd(q3, k3, v3, **kw)
+        if not (torch.equal(got3, out3) and torch.equal(lse3, lse)):
+            raise AssertionError(f"{name}: the 3-D call differs from the "
+                                 f"in-place call on the same values")
+        return kw, (q3, k3, v3), want, s_out, err
 
-    # -- the path's shapes, bf16, causal
-    q, k, v = inputs(batch * KV, seq, seq, torch.bfloat16)
-    kw, want, s_out, err = held("flash_fwd bf16 causal", q, k, v, True)
-    q4 = q.view(batch, KV * G, seq, D)
-    k4, v4 = k.view(batch, KV, seq, D), v.view(batch, KV, seq, D)
+    # -- the path's shapes, bf16, causal, in the path's layout
+    q, k, v = inputs(batch, seq, seq, torch.bfloat16)
+    kw, (q3, k3, v3), want, s_out, err = held("flash_fwd bf16 causal", q, k,
+                                              v, True)
+    q4 = q3.view(batch, KV * G, seq, D)
+    k4, v4 = k3.view(batch, KV, seq, D), v3.view(batch, KV, seq, D)
 
     def sdpa():
         return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
@@ -841,43 +925,45 @@ def flash_fwd_alone(cfg, batch: int, seq: int, seed: int):
 
     # the library call is timed as the yardstick only; its gap to the plain
     # version is logged, not held
-    lib = sdpa().reshape(q.shape).float()
+    lib = sdpa().reshape(q3.shape).float()
     log(f"  flash_fwd library (SDPA): worst err/scale "
         f"{float(((lib - want.float()).abs() / s_out).max()):.3e}")
     del lib, want, s_out
-    out = dict(
-        max_abs_err=err, shape=[batch * KV * G, seq, D],
-        ms=time_ms(lambda: ops.flash_fwd(q, k, v, **kw), 20),
-        plain_ms=time_ms(lambda: ref.flash_fwd_ref(q, k, v, **kw), 3, warmup=1),
-        library_ms=time_ms(sdpa, 20))
-    t_b = bound(nbytes(q, k, v, q) + q.shape[0] * seq * 4,
-                flash_flops(q.shape[0], seq, seq, D, True),
+    flops = flash_flops(q3.shape[0], seq, seq, D, True)
+    t_b = bound(nbytes(q, k, v, q) + q3.shape[0] * seq * 4, flops,
                 PEAK_BF16_TC_FLOP_PER_S)
-    out.update(bound_ms=t_b[0], bound_by=t_b[1])
-    torch.cuda.empty_cache()
-
-    # -- the regrouping around the kernel: [B, S, H, D] in and out
-    qb = q4.transpose(1, 2).contiguous()
-    kb, vb = k4.transpose(1, 2).contiguous(), v4.transpose(1, 2).contiguous()
-    out["layer_call_ms"] = time_ms(
-        lambda: nn.flash_attention_kernel(qb, kb, vb, causal=True), 20)
-    del q, k, v, q4, k4, v4, qb, kb, vb
+    out = dict(
+        max_abs_err=err, shape=[batch, seq, KV * G, D],
+        ms=time_ms(lambda: ops.flash_fwd(q, k, v, **kw), 20),
+        layout_3d_ms=time_ms(lambda: ops.flash_fwd(q3, k3, v3, **kw), 20),
+        plain_ms=time_ms(lambda: ref.flash_fwd_ref(q3, k3, v3, **kw), 3,
+                         warmup=1),
+        library_ms=time_ms(sdpa, 20), bound_ms=t_b[0], bound_by=t_b[1],
+        # the layer's call on the same tensors: no copy around the kernel
+        layer_call_ms=time_ms(
+            lambda: nn.flash_attention_kernel(q, k, v, causal=True), 20))
+    out.update(tflop_s=flops / out["ms"] / 1e9,
+               bound_share=out["bound_ms"] / out["ms"],
+               vs_library=out["ms"] / out["library_ms"])
+    del q, k, v, q3, k3, v3, q4, k4, v4
     torch.cuda.empty_cache()
 
     # -- float32, full attention, Sq ≠ Sk, at a smaller shape
-    q, k, v = inputs(2 * KV, 1024, 1536, torch.float32)
-    kw, _, _, err32 = held("flash_fwd f32 full", q, k, v, False)
+    q, k, v = inputs(2, 1024, 1536, torch.float32)
+    kw, _, _, _, err32 = held("flash_fwd f32 full", q, k, v, False)
     out["f32"] = dict(max_abs_err=err32, shape=[[*q.shape], [*k.shape]],
                       ms=time_ms(lambda: ops.flash_fwd(q, k, v, **kw), 10),
-                      bound_ms=bound(nbytes(q, k, v, q) + q.shape[0] * 1024 * 4,
-                                     flash_flops(q.shape[0], 1024, 1536, D,
+                      bound_ms=bound(nbytes(q, k, v, q) + 2 * KV * G * 1024 * 4,
+                                     flash_flops(2 * KV * G, 1024, 1536, D,
                                                  False))[0])
     del q, k, v
     torch.cuda.empty_cache()
-    log(f"  flash_fwd {out['shape']}: kernel {out['ms']:.4f} ms, plain "
-        f"{out['plain_ms']:.4f} ms, library (SDPA) {out['library_ms']:.4f} ms, "
-        f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}); the layer's call "
-        f"with its regrouping copies {out['layer_call_ms']:.4f} ms")
+    log(f"  flash_fwd {out['shape']} (in place): kernel {out['ms']:.4f} ms "
+        f"({out['tflop_s']:.1f} TFLOP/s, {out['bound_share']:.3f} of its "
+        f"bound), 3-D layout {out['layout_3d_ms']:.4f} ms, plain "
+        f"{out['plain_ms']:.4f} ms, library (SDPA) {out['library_ms']:.4f} ms "
+        f"(kernel/SDPA {out['vs_library']:.3f}), bound {out['bound_ms']:.4f} ms "
+        f"({out['bound_by']}); the layer's call {out['layer_call_ms']:.4f} ms")
     log(f"  flash_fwd f32 {out['f32']['shape']}: kernel {out['f32']['ms']:.4f} "
         f"ms, float32 bound {out['f32']['bound_ms']:.4f} ms")
     return out
@@ -1033,6 +1119,7 @@ def main(argv=None) -> int:
     (out_dir / "chip_smoke_build.log").write_text(
         "\n".join(f"== {name} ({r['seconds']:.1f} s)\n{r['log']}"
                   for name, r in built.items()))
+    report["redesigned"] = build_facts(built)
     card = card_line()
     report["card"] = card
     log(f"[build] {len(built)} kernels built in {report['build_s']:.1f} s "

@@ -6,8 +6,9 @@ interface (no PyTorch headers, so a build takes seconds)::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas=-v -o build/kernels/lib<name>_<hash>.so csrc/<name>.cu
 
-The library's file name carries a hash of its source and flags, so an edited
-source never loads a stale build.  Builds happen at first use (``load``), or
+Some sources add flags of their own (``SOURCE_FLAGS``).  The library's file
+name carries a hash of its source, every header in ``csrc/`` and its flags,
+so an edited source or header never loads a stale build.  Builds happen at first use (``load``), or
 all at once and in parallel (``build_all``); nothing is built at import.
 The build directory is ``build/kernels`` at the root of the checkout.
 """
@@ -34,6 +35,9 @@ SOURCES = {
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# flags of one source beyond NVCC_FLAGS: the attention kernel finds the
+# driver's cuTensorMapEncodeTiled with dlopen
+SOURCE_FLAGS = {"flash_fwd": ("-ldl",)}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -51,10 +55,20 @@ def nvcc_path() -> str:
     return found
 
 
+def flags(name: str) -> tuple:
+    """nvcc's flags for kernel ``name``: the common ones, then its own."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    """Where kernel ``name``'s library is built: the name hashes its source,
+    every ``*.cuh`` in ``csrc/`` (a source may include any of them) and its
+    flags."""
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(flags(name)).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
@@ -71,7 +85,9 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        # a source's own flags (libraries) after the source, for the linker
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / SOURCES[name]), *SOURCE_FLAGS.get(name, ())]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

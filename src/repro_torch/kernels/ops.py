@@ -39,8 +39,10 @@ _SIGNATURES = {
     "block_diag_matvec_f32": ("block_diag_matvec", [_P] * 3 + [_I] * 2 + [_P]),
     "edge_reweight_f32": ("edge_reweight",
                           [_P] * 4 + [_F, _P, _L, _I, _I, _P]),
-    "flash_fwd_bf16": ("flash_fwd", [_P] * 5 + [_I] * 6 + [_F, _P]),
-    "flash_fwd_f32": ("flash_fwd", [_P] * 5 + [_I] * 6 + [_F, _P]),
+    "flash_fwd_bf16": ("flash_fwd", [_P] * 5 + [_I] * 6
+                       + [ctypes.POINTER(_L), _I, _F, _P]),
+    "flash_fwd_f32": ("flash_fwd", [_P] * 5 + [_I] * 6
+                      + [ctypes.POINTER(_L), _I, _F, _P]),
 }
 _fns: Dict[str, ctypes._CFuncPtr] = {}
 
@@ -237,37 +239,96 @@ def edge_reweight_r(src: torch.Tensor, dst: torch.Tensor, c: torch.Tensor,
 FLASH_HEAD_DIMS = (64, 128)
 
 
+def _regroup(q, k, v):
+    """The model's layout q [B, Sq, H, D], k, v [B, Sk, KV, D] as the 3-D
+    one: q [B·H, Sq, D] with head b·H + kv·G + g, k, v [B·KV, Sk, D]."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    q3 = (q.reshape(B, Sq, KV, H // KV, D).permute(0, 2, 3, 1, 4)
+          .reshape(B * H, Sq, D))
+    k3, v3 = (t.permute(0, 2, 1, 3).reshape(B * KV, Sk, D) for t in (k, v))
+    return q3, k3, v3
+
+
+def _flash_strides(t: torch.Tensor, four_d: bool, heads: int):
+    """(batch, head, row) element strides of one operand; the 3-D layout
+    [B·KV·G, S, D] is read as B·KV batches of ``heads`` heads (q and out: G,
+    k and v: 1)."""
+    if four_d:
+        return t.stride(0), t.stride(2), t.stride(1)
+    return heads * t.stride(0), t.stride(0), t.stride(1)
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               g_per_kv: int, causal: bool = True, scale: float = 1.0):
-    """GQA flash-attention forward: (out [BH, Sq, D] in q's dtype,
-    lse [BH, Sq] float32) from q [BH, Sq, D] and k, v [BKV, Sk, D] with
-    BH = BKV·G; query head bh reads kv head bh // G.  bfloat16 or float32,
-    D in ``FLASH_HEAD_DIMS``, any Sq and Sk ≥ 1."""
-    if _on_cpu(q, k, v):
-        return ref.flash_fwd_ref(q, k, v, g_per_kv=g_per_kv, causal=causal,
-                                 scale=scale)
-    _require(q.dim() == k.dim() == v.dim() == 3,
-             f"q, k, v must be 3-D, got {tuple(q.shape)}, {tuple(k.shape)}, "
-             f"{tuple(v.shape)}")
-    bh, sq, d = q.shape
-    bkv, sk, _ = k.shape
-    _require(g_per_kv >= 1 and bh == bkv * g_per_kv and k.shape == v.shape
-             and k.shape[2] == d and sk >= 1,
+    """GQA flash-attention forward in one of two layouts:
+
+    * 3-D: q [BH, Sq, D] and k, v [BKV, Sk, D] with BH = BKV·G, contiguous;
+      query head bh reads kv head bh // G.
+    * 4-D, the model's own: q [B, Sq, H, D] and k, v [B, Sk, KV, D] with
+      H = KV·G, read and written in place: the head dim contiguous, the base
+      pointers and every other stride (in bytes) multiples of 16.
+
+    Returns (out in q's shape and dtype, lse [BH, Sq] float32) with query
+    head bh = b·H + kv·G + g in both layouts.  bfloat16 or float32, D in
+    ``FLASH_HEAD_DIMS``, any Sq and Sk ≥ 1; the bfloat16 kernel takes a
+    positive ``scale`` only.  On CPU tensors the 4-D layout is
+    regrouped and the plain version runs, so both layouts give equal
+    results."""
+    _require(q.dim() == k.dim() == v.dim() and q.dim() in (3, 4),
+             f"q, k, v must be all 3-D or all 4-D, got {tuple(q.shape)}, "
+             f"{tuple(k.shape)}, {tuple(v.shape)}")
+    four_d = q.dim() == 4
+    if four_d:
+        b, sq, h, d = q.shape
+        _, sk, kv, _ = k.shape
+        ok = (k.shape[0] == b and kv * g_per_kv == h)
+        bh = b * h
+    else:
+        bh, sq, d = q.shape
+        bkv, sk, _ = k.shape
+        ok = bh == bkv * g_per_kv
+    _require(g_per_kv >= 1 and ok and k.shape == v.shape
+             and k.shape[-1] == d and sk >= 1,
              f"shapes: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
              f"{tuple(v.shape)}, g_per_kv {g_per_kv}")
+    _require(k.dtype == v.dtype == q.dtype, "q, k and v must share one dtype")
+    if _on_cpu(q, k, v):
+        if not four_d:
+            return ref.flash_fwd_ref(q, k, v, g_per_kv=g_per_kv,
+                                     causal=causal, scale=scale)
+        out, lse = ref.flash_fwd_ref(*_regroup(q, k, v), g_per_kv=g_per_kv,
+                                     causal=causal, scale=scale)
+        kv = k.shape[2]
+        out = (out.reshape(b, kv, g_per_kv, sq, d).permute(0, 3, 1, 2, 4)
+               .contiguous().reshape(q.shape))
+        return out, lse
     _require(d in FLASH_HEAD_DIMS, f"head dim {d} not in {FLASH_HEAD_DIMS}")
     _require(q.dtype in (torch.bfloat16, torch.float32),
              f"q must be bfloat16 or float32, got {q.dtype}")
-    _require(k.dtype == v.dtype == q.dtype, "q, k and v must share one dtype")
-    _contiguous(q=q, k=k, v=v)
-    # the kernel moves 16 bytes per load
+    _require(q.dtype == torch.float32 or scale > 0,
+             f"the bfloat16 kernel needs a positive scale, got {scale}")
+    if four_d:
+        _require(all(t.stride(3) == 1 for t in (q, k, v)),
+                 "q, k and v must have a contiguous last dim")
+    else:
+        _contiguous(q=q, k=k, v=v)
+    # the kernels move 16 bytes per load (TMA's rule for the bf16 kernel)
+    esize = q.element_size()
     _require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
              "q, k and v must start on a 16-byte boundary")
-    out = torch.empty_like(q)
+    _require(all(s * esize % 16 == 0 for t in (q, k, v) for s in t.stride()[:-1]),
+             "every stride of q, k and v but the last must be a multiple of "
+             "16 bytes")
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 12)(*(
+        s for t, heads in ((q, g_per_kv), (k, 1), (v, 1), (out, g_per_kv))
+        for s in _flash_strides(t, four_d, heads)))
+    nb, nh = (b, h) if four_d else (bh // g_per_kv, g_per_kv)
     symbol = "flash_fwd_bf16" if q.dtype == torch.bfloat16 else "flash_fwd_f32"
     _launch(symbol, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), bh, sq, sk, d, g_per_kv,
-            int(causal), float(scale))
+            out.data_ptr(), lse.data_ptr(), nb, nh, g_per_kv, sq, sk, d,
+            strides, int(causal), float(scale))
     _count("flash_fwd")
     return out, lse

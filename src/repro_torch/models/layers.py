@@ -147,21 +147,13 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            scale: Optional[float] = None) -> torch.Tensor:
     """The full-attention forward through ``ops.flash_fwd`` (the counterpart
     of ``flash_attention_pallas``).  q: [B, Sq, H, D]; k, v: [B, Sk, KV, D].
-    The heads are regrouped into the kernel's [B·KV·G, S, D] layout (a copy
-    of q, k and v) and the output copied back."""
-    B, Sq, H, D = q.shape
-    Sk, KV = k.shape[1], k.shape[2]
-    G = H // KV
+    The kernel reads q, k and v in this layout in place and writes the
+    output in it: no copy."""
+    H, D = q.shape[2], q.shape[3]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    q2 = (q.reshape(B, Sq, KV, G, D).permute(0, 2, 3, 1, 4)
-          .reshape(B * KV * G, Sq, D).contiguous())
-    k2 = k.permute(0, 2, 1, 3).reshape(B * KV, Sk, D).contiguous()
-    v2 = v.permute(0, 2, 1, 3).reshape(B * KV, Sk, D).contiguous()
-    out, _ = ops.flash_fwd(q2, k2, v2, g_per_kv=G, causal=causal,
+    out, _ = ops.flash_fwd(q, k, v, g_per_kv=H // k.shape[2], causal=causal,
                            scale=float(scale))
-    out = (out.reshape(B, KV, G, Sq, D).permute(0, 3, 1, 2, 4)
-           .reshape(B, Sq, H, D))
-    return out.to(q.dtype)
+    return out
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -308,3 +308,134 @@ def test_flash_fwd_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         ops.flash_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), kv, kv,
                       g_per_kv=2)
+
+
+# -- the redesigned kernels: ell_spmv's two variants, flash_fwd in place -----
+
+def _ell_expected(cols, vals, diag, v):
+    """y = diag⊙v + Σ vals⊙v[cols] in float64 with out-of-range columns
+    gathering 0, and each row's Σ|terms| (the scale of its rounding)."""
+    n = cols.shape[0]
+    ok = (cols >= 0) & (cols < n)
+    g = np.where(ok, v[..., np.where(ok, cols, 0)], 0.0)
+    terms = vals * g
+    y = diag * v + terms.sum(-1)
+    return y, np.abs(diag * v) + np.abs(terms).sum(-1)
+
+
+# k % 4 == 0 takes the vector variant (k = 4, 8, 32: one 16-byte chunk per
+# thread; 64: two; 128: four), k = 9, 33 the scalar one; B = 12 spans two
+# chunks of lanes.  float32: 1e-5 of Σ|terms| per row (k + 1 products summed
+# in another order); bfloat16: the output's rounding (2^-8 of |y|) on top.
+@pytest.mark.parametrize("k", [4, 8, 9, 32, 33, 64, 128])
+@pytest.mark.parametrize("lanes", [1, 3, 8, 12])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ell_spmv_variants(cuda, k, lanes, dtype):
+    rng = np.random.default_rng(100 * k + lanes)
+    n = 1000 + k
+    cols = rng.integers(0, n, size=(n, k)).astype(np.int32)
+    cols[rng.uniform(size=(n, k)) < 0.02] = -1          # gathers 0
+    cols[rng.uniform(size=(n, k)) < 0.02] = n + 3       # gathers 0
+    lead = () if lanes == 1 else (lanes,)
+    td = getattr(torch, dtype)
+    vals, diag, v = (torch.as_tensor(rng.standard_normal(lead + s)
+                                     .astype(np.float32)).to(td)
+                     for s in ((n, k), (n,), (n,)))
+    c, a, d, x = _dev(cuda, cols, vals, diag, v)
+    before = ops.launches["ell_spmv"]
+    y = ops.ell_spmv(c, a, d, x)
+    torch.cuda.synchronize()
+    assert ops.launches["ell_spmv"] == before + 1
+    assert y.shape == lead + (n,) and y.dtype == td
+    want, scale = _ell_expected(cols, *(t.double().numpy()
+                                        for t in (vals, diag, v)))
+    tol = 1e-5 * scale + (0.0 if dtype == "float32" else 2.0 ** -8 * np.abs(want))
+    err = np.abs(y.double().cpu().numpy() - want)
+    assert np.all(err <= tol), float((err / np.maximum(tol, 1e-30)).max())
+
+
+def _flash_4d_inputs(dev, rng, b, g, kv, sq, sk, d, dtype):
+    td = getattr(torch, dtype)
+    shapes = ((b, sq, kv * g, d), (b, sk, kv, d), (b, sk, kv, d))
+    return tuple(torch.as_tensor(rng.standard_normal(s).astype(np.float32),
+                                 device=dev).to(td) for s in shapes)
+
+
+def _check_flash_4d(q, k, v, g, causal, rtol):
+    """The kernel on the model's layout against the plain version on the
+    regrouped tensors, each entry against its own scale; lse at 1e-5."""
+    kw = dict(g_per_kv=g, causal=causal, scale=1.0 / np.sqrt(q.shape[-1]))
+    before = ops.launches["flash_fwd"]
+    out, lse = ops.flash_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_fwd"] == before + 1
+    assert out.shape == q.shape and out.dtype == q.dtype
+    q3, k3, v3 = ops._regroup(q, k, v)
+    want, want_lse = ref.flash_fwd_ref(q3, k3, v3, **kw)
+    s_out, s_lse = ref.flash_fwd_scales(q3, k3, v3, **kw)
+    out3, _, _ = ops._regroup(out, k, v)
+    err = (out3.float() - want.float()).abs()
+    assert bool((err <= rtol * s_out).all()), float((err / s_out).max())
+    err = (lse - want_lse).abs()
+    assert bool((err <= 1e-5 * s_lse).all()), float((err / s_lse).max())
+    return out, lse
+
+
+@pytest.mark.parametrize("g", [1, 2, 6])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", [(1, 1), (65, 65), (200, 333), (4096, 4096)])
+def test_flash_fwd_kernel_4d(cuda, g, d, causal, sq, sk):
+    """bf16 in the model's [B, S, H, D] layout, read and written in place:
+    tile edges (one row, 65 rows and keys, Sq ≠ Sk) and the path's length."""
+    rng = np.random.default_rng(g * d + sq + causal)
+    b, kv = (1, 1) if sq == 4096 else (2, 2)
+    q, k, v = _flash_4d_inputs(cuda, rng, b, g, kv, sq, sk, d, "bfloat16")
+    _check_flash_4d(q, k, v, g, causal, _FLASH_RTOL["bfloat16"])
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fwd_kernel_4d_strided(cuda, dtype, causal):
+    """q, k and v as slices of one packed [B, S, H + 2 KV, D] projection:
+    row strides that are not the tensors' own widths."""
+    rng = np.random.default_rng(5 + causal)
+    b, s, g, kv, d = 2, 150, 3, 2, 128
+    qkv = torch.as_tensor(rng.standard_normal((b, s, (g + 2) * kv, d))
+                          .astype(np.float32), device=cuda).to(getattr(torch, dtype))
+    h = g * kv
+    q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kv], qkv[:, :, h + kv:]
+    assert not q.is_contiguous()
+    _check_flash_4d(q, k, v, g, causal, _FLASH_RTOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_fwd_4d_equals_3d(cuda, dtype):
+    """A 4-D call gives the same bytes as the 3-D call on the regrouped
+    tensors (the same blocks do the same arithmetic)."""
+    rng = np.random.default_rng(9)
+    q, k, v = _flash_4d_inputs(cuda, rng, 2, 2, 3, 333, 333, 128, dtype)
+    kw = dict(g_per_kv=2, causal=True, scale=0.1)
+    out4, lse4 = ops.flash_fwd(q, k, v, **kw)
+    q3, k3, v3 = (t.contiguous() for t in ops._regroup(q, k, v))
+    out3, lse3 = ops.flash_fwd(q3, k3, v3, **kw)
+    assert torch.equal(ops._regroup(out4, k, v)[0], out3)
+    assert torch.equal(lse4, lse3)
+
+
+def test_flash_fwd_rejects_misaligned_layouts(cuda):
+    q, k, v = _flash_4d_inputs(cuda, np.random.default_rng(0), 1, 2, 1, 64, 64,
+                               128, "bfloat16")
+    wide = torch.zeros((1, 64, 2, 132), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        ops.flash_fwd(wide[..., :128], k, v, g_per_kv=2)     # row of 264 bytes
+    flat = torch.zeros(q.numel() + 8, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        ops.flash_fwd(flat[1:1 + q.numel()].view(q.shape), k, v, g_per_kv=2)
+    with pytest.raises(ValueError, match="contiguous last dim"):
+        ops.flash_fwd(q.transpose(1, 3).contiguous().transpose(1, 3), k, v,
+                      g_per_kv=2)
+    with pytest.raises(ValueError, match="shapes"):
+        ops.flash_fwd(q, k, v, g_per_kv=1)
+    with pytest.raises(ValueError, match="positive scale"):
+        ops.flash_fwd(q, k, v, g_per_kv=2, scale=-0.1)

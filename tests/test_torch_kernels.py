@@ -267,15 +267,94 @@ def test_wrappers_take_plain_version_only_on_cpu():
 
 
 def test_build_names_each_library_by_its_source(monkeypatch, tmp_path):
-    """A kernel library's file name hashes its source and flags (an edited
-    source never loads a stale build); a missing nvcc raises."""
+    """A kernel library's file name hashes its source, every header in
+    csrc/ and its flags (an edited source or header never loads a stale
+    build); a missing nvcc raises."""
     paths = {name: build.library_path(name) for name in build.SOURCES}
     assert len(set(paths.values())) == len(paths)
     for name, path in paths.items():
         assert path.parent == build.BUILD_DIR
         assert path.name.startswith(f"lib{name}_") and path.suffix == ".so"
         assert (build.CSRC / build.SOURCES[name]).exists()
+        assert build.flags(name)[:len(build.NVCC_FLAGS)] == build.NVCC_FLAGS
+    assert list(build.CSRC.glob("*.cuh")), "the kernels share a header"
+    # a copy of csrc/: the same files give the same names
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in build.CSRC.iterdir():
+        (csrc / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "CSRC", csrc)
+    assert {n: build.library_path(n) for n in build.SOURCES} == paths
+    # an edited header renames every library
+    header = sorted(csrc.glob("*.cuh"))[0]
+    text = header.read_bytes()
+    header.write_bytes(text + b"\n// edited\n")
+    assert all(build.library_path(n) != paths[n] for n in build.SOURCES)
+    header.write_bytes(text)
+    assert {n: build.library_path(n) for n in build.SOURCES} == paths
+    # so does a new header, and a source's own flags rename its library only
+    (csrc / "extra.cuh").write_text("#pragma once\n")
+    assert all(build.library_path(n) != paths[n] for n in build.SOURCES)
+    (csrc / "extra.cuh").unlink()
+    monkeypatch.setitem(build.SOURCE_FLAGS, "ell_spmv", ("-lm",))
+    assert build.library_path("ell_spmv") != paths["ell_spmv"]
+    assert build.library_path("flash_fwd") == paths["flash_fwd"]
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.nvcc_path()
+
+
+def _model_layout(rng, b, sq, sk, h, kv, d):
+    return tuple(torch.as_tensor(rng.standard_normal(s).astype(np.float32))
+                 for s in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d)))
+
+
+@pytest.mark.parametrize("g", [1, 2, 3])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fwd_4d_equals_3d_on_cpu(g, causal):
+    """The model's [B, S, H, D] layout gives exactly the 3-D call's result on
+    the regrouped tensors (query head b·H + kv·G + g in lse), with out back
+    in q's layout."""
+    rng = np.random.default_rng(g + 10 * causal)
+    q, k, v = _model_layout(rng, 2, 24, 24 + 5 * (not causal), 2 * g, 2, 16)
+    kw = dict(g_per_kv=g, causal=causal, scale=0.3)
+    out4, lse4 = ops.flash_fwd(q, k, v, **kw)
+    q3 = q.reshape(2, 24, 2, g, 16).permute(0, 2, 3, 1, 4).reshape(4 * g, 24, 16)
+    k3, v3 = (t.permute(0, 2, 1, 3).reshape(4, -1, 16) for t in (k, v))
+    out3, lse3 = ops.flash_fwd(q3.contiguous(), k3.contiguous(),
+                               v3.contiguous(), **kw)
+    assert out4.shape == q.shape and lse4.shape == (4 * g, 24)
+    assert torch.equal(out4.reshape(2, 24, 2, g, 16).permute(0, 2, 3, 1, 4)
+                       .reshape(4 * g, 24, 16), out3)
+    assert torch.equal(lse4, lse3)
+    assert all(torch.equal(a, b) for a, b in zip(ops._regroup(q, k, v),
+                                                 (q3, k3, v3)))
+
+
+def test_flash_fwd_layout_checks_raise_on_cpu():
+    """The layout and shape checks are not the card's: they raise on CPU
+    tensors too (the head-dim, dtype-set and alignment rules are the
+    kernel's and apply on the card only)."""
+    rng = np.random.default_rng(0)
+    q, k, v = _model_layout(rng, 2, 8, 8, 4, 2, 16)
+    with pytest.raises(ValueError, match="all 3-D or all 4-D"):
+        ops.flash_fwd(q, k[0], v[0], g_per_kv=2)
+    with pytest.raises(ValueError, match="all 3-D or all 4-D"):
+        ops.flash_fwd(q[0, 0], k[0, 0], v[0, 0], g_per_kv=2)
+    with pytest.raises(ValueError, match="shapes"):
+        ops.flash_fwd(q, k, v, g_per_kv=3)           # H ≠ KV·G
+    with pytest.raises(ValueError, match="shapes"):
+        ops.flash_fwd(q, k[:1], v[:1], g_per_kv=2)   # batch mismatch
+    with pytest.raises(ValueError, match="shapes"):
+        ops.flash_fwd(q, k, v[..., :8], g_per_kv=2)
+    with pytest.raises(ValueError, match="shapes"):
+        ops.flash_fwd(q[:, :, :, :8], k, v, g_per_kv=2)
+    with pytest.raises(ValueError, match="dtype"):
+        ops.flash_fwd(q, k.double(), v, g_per_kv=2)
+    with pytest.raises(ValueError, match="shapes"):
+        ops.flash_fwd(*(t.reshape(-1, 8, 16)[:3] for t in (q, k, v)), g_per_kv=2)
+    ops.reset_launches()
+    out, lse = ops.flash_fwd(q, k, v, g_per_kv=2)
+    assert out.shape == q.shape and lse.shape == (8, 8)
+    assert ops.launches["flash_fwd"] == 0

@@ -164,6 +164,54 @@ def test_flash_attention_matches_jax(window, causal, use_pallas):
     _close(got, want, 2e-5)
 
 
+# 2e-5 as test_flash_attention_matches_jax: float32 sums in another order
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("H,KV", [(6, 2), (4, 4), (6, 1)])
+def test_flash_attention_kernel_matches_jax_pallas(causal, H, KV):
+    """``flash_attention_kernel`` hands the model's [B, S, H, D] tensors to
+    ``ops.flash_fwd`` as they are (no regrouping copy) and still matches
+    the JAX ``flash_attention_pallas`` in interpret mode, at the shapes of
+    test_flash_attention_matches_jax."""
+    from repro.kernels.flash_attention import flash_attention_pallas
+
+    rng = np.random.default_rng(H * KV + causal)
+    B, S, D = 2, 48, 16
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D)))
+    want = flash_attention_pallas(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), causal=causal, q_chunk=16,
+                                  k_chunk=16, interpret=True)
+    got = nn.flash_attention_kernel(_t(q), _t(k), _t(v), causal=causal)
+    assert got.shape == (B, S, H, D) and got.dtype == torch.float32
+    _close(got, want, 2e-5)
+
+
+def test_prefill_hands_the_kernel_contiguous_model_layout(monkeypatch):
+    """On the kernel route every layer's q, k and v reach ``ops.flash_fwd``
+    as contiguous [B, S, ·, D] tensors (after RoPE and the head reshape), the
+    layout the kernel reads in place; the output goes back as it came."""
+    cfg = dataclasses.replace(plm.reduced_lm("qwen2-1.5b"),
+                              use_pallas_attention=True)
+    params = tr.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    seen = []
+    real = ops.flash_fwd
+
+    def spy(q, k, v, **kw):
+        seen.append((q, k, v))
+        out, lse = real(q, k, v, **kw)
+        assert out.shape == q.shape and out.is_contiguous()
+        return out, lse
+
+    monkeypatch.setattr(nn.ops, "flash_fwd", spy)
+    toks = torch.as_tensor(_tokens(cfg.vocab, (2, 32), 3))
+    tr.prefill(params, toks, cfg, pad_cache_to=40)
+    assert len(seen) == cfg.n_layers
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    for q, k, v in seen:
+        assert q.shape == (2, 32, H, Dh) and k.shape == v.shape == (2, 32, KV, Dh)
+        assert q.is_contiguous() and k.is_contiguous() and v.is_contiguous()
+
+
 def test_flash_attention_q_offset_and_chunk_check():
     """A q block at an offset into the keys (the path decode-by-chunks
     takes) matches JAX; chunks that do not divide the sequence raise."""
