@@ -8,9 +8,11 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
 
 1. Build the five CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    nvcc for sm_90a (one nvcc per source, all started together), keep the
-   ptxas lines (registers, spills) of the two kernels redesigned for Hopper
-   and count the HGMMA instructions in the attention kernel's SASS (there
-   must be some), and print the card's name and power limit.
+   ptxas lines (registers, spills) of the four kernels redesigned for
+   Hopper (``flash_fwd``, ``ell_spmv``, ``block_diag_matvec``,
+   ``fused_ell_sweep``; the last two must not spill) and count the HGMMA
+   instructions in the attention kernel's SASS (there must be some), and
+   print the card's name and power limit.
 2. Make the full-width instance: a 26-connected ``side``³ segmentation grid
    (the repo's grid3d family, the shape of the paper's UWO MRI volumes)
    with 8×8×8 voxel boxes as the block-Jacobi partition.
@@ -19,8 +21,11 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    from a seeded ``torch.Generator``), held against its plain PyTorch
    version, entry by entry against the entry's own scale, then timed with
    CUDA events beside the plain version, its bound and one PyTorch library
-   call computing the same function where there is one; ``ell_spmv``'s
-   share of its bound and its time over the CSR call are logged.
+   call computing the same function where there is one.  Logged: the share
+   of its bound of ``ell_spmv`` (and its time over the CSR call),
+   ``fused_ell_sweep`` and ``block_diag_matvec``; the last is timed in
+   turns with ``torch.bmm``, three times each, and its ``ms`` and
+   ``library_ms`` are the medians, whose ratio is logged.
 4. The main path: ``pirmcut``'s two steps (``Problem.build``, then
    ``MinCutSession.solve``, whose timings give the setup, IRLS and rounding
    seconds) with the kernel config on the card, launch counters set to 0
@@ -35,9 +40,10 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
 6. Two-level rounding at side 32 (kernel path vs plain path, rel 1e-6) and
    at side 16 against the exact min cut of the host Dinic (rel 1e-6).
 7. ``edge_reweight`` alone at the COO shapes of the 96³ instance, one
-   instance (B = 1) and a serving batch (B = 8), with a few endpoints out of
-   range (they gather 0), held entry by entry against the plain version
-   (bit for bit) and timed beside it and its bound.
+   instance (B = 1) and a serving batch (B = 8), and of phase 8's 2-D frame
+   (B = 8), with a few endpoints out of range (they gather 0), held entry
+   by entry against the plain version (bit for bit) and timed beside it and
+   its bound.
 8. The serving path: ``MinCutServer`` (the server's default config with
    ``use_pallas``, sweep rounding, 4 workers, idle flush, ``max_batch`` 8)
    serves two tenants at full width — the 96³ volume and a 1024×1024
@@ -61,9 +67,15 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    device time by name and the device's busy share.
 9. The batched ELL path: ``solve_batch`` on B = 4 lanes of a 48³ grid in the
    kernel config of phase 4 (block plan of 8×8×8 boxes, the default fixed
-   schedule), with the batched ``ell_spmv``/``fused_ell_sweep`` held against
-   their plain versions first (``ell_spmv`` also timed beside the B lanes as
-   one block-diagonal CSR ``torch.mv``); the launches must be the fixed schedule's,
+   schedule), with the batched ``ell_spmv``/``fused_ell_sweep`` and
+   ``block_diag_matvec`` on the B lanes' [B·P, bs, bs] inverses held against
+   their plain versions first, as in phase 3 (``ell_spmv`` also timed
+   beside the B lanes as one block-diagonal CSR ``torch.mv``,
+   ``block_diag_matvec`` in turns with ``torch.bmm``; each one's share of
+   its bound logged; the batched ``ell_spmv`` and ``fused_ell_sweep``,
+   whose launches are about as short as their wrappers' host work, timed
+   back to back as everywhere, and by device time in a CUDA graph beside);
+   the launches must be the fixed schedule's,
    and the cuts the plain path's within rel 1e-4 (the schedule's CG steps
    past convergence amplify the kernels' other summation orders into cut
    gaps of a few 1e-5; fewer IRLS iterations leave the voltages less
@@ -174,21 +186,25 @@ def segmentation_grid(side: int, seed: int):
     return gen.segmentation_instance(g, (side,) * 3, seed=seed + 1)
 
 
-# the kernels redesigned for Hopper: their ptxas lines go to the report
-REDESIGNED = ("flash_fwd", "ell_spmv")
+# the kernels redesigned for Hopper: their ptxas lines go to the report;
+# those of STRICT must not spill
+REDESIGNED = ("flash_fwd", "ell_spmv", "block_diag_matvec", "fused_ell_sweep")
+STRICT = ("block_diag_matvec", "fused_ell_sweep")
 
 
-def build_facts(built) -> dict:
+def build_facts() -> dict:
     """What the compiler says of the redesigned kernels: per kernel, the
-    ptxas lines of each entry function (registers, shared memory, spills)
-    and the count of HGMMA (wgmma) instructions in its library's SASS.
-    Fails if the attention kernel's SASS holds no HGMMA."""
+    ptxas lines of each entry function (registers, shared memory, spills;
+    from the log kept beside its library, so a build made before this run
+    counts too) and the count of HGMMA (wgmma) instructions in its
+    library's SASS.  Fails if the attention kernel's SASS holds no HGMMA,
+    or if a kernel of ``STRICT`` has no ptxas lines or spills."""
     from repro_torch.kernels import build
 
     facts = {}
     cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
     for name in REDESIGNED:
-        lines = [ln.strip() for ln in built.get(name, {}).get("log", "").splitlines()
+        lines = [ln.strip() for ln in build.build_log(name).splitlines()
                  if any(w in ln for w in ("Compiling entry", "registers",
                                           "spill", "C75"))]
         sass = subprocess.run([str(cuobjdump), "-sass",
@@ -201,6 +217,9 @@ def build_facts(built) -> dict:
         log(f"[build] {name}: {sum('registers' in ln for ln in lines)} entry "
             f"functions, {len(spills)} with spills; {facts[name]['hgmma']} "
             f"HGMMA instructions in its SASS")
+        if name in STRICT and (spills or not lines):
+            raise AssertionError(f"{name}: spills {spills} in ptxas lines "
+                                 f"{lines}")
     if facts["flash_fwd"]["hgmma"] == 0:
         raise AssertionError("flash_fwd's library has no HGMMA instruction")
     return facts
@@ -222,6 +241,47 @@ def time_ms(fn, reps: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device milliseconds per call of ``fn``: ``reps`` calls captured
+    in one CUDA graph, replayed once to warm up, then once between two CUDA
+    events.  What ``time_ms`` reads where the wrapper's host work per call
+    (checks, allocations, the launch) takes longer than its kernel: the
+    launches then wait on the host, and ``time_ms`` times the host."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def alternate_ms(fns: dict, reps: int, rounds: int = 3):
+    """Each of ``fns`` timed ``rounds`` times in turn (a, b, a, b, ...), each
+    timing a ``time_ms`` of ``reps`` calls.  Returns the medians and the
+    timings by name."""
+    import statistics
+
+    runs = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            runs[name].append(time_ms(fn, reps))
+    return {name: statistics.median(t) for name, t in runs.items()}, runs
 
 
 def bound(n_bytes: float, n_flops: float, peak_flops: float = PEAK_F32_FLOP_PER_S):
@@ -324,28 +384,14 @@ def kernels_alone(prob, inst, cfg, seed: int):
         ms=time_ms(lambda: ops.fused_ell_sweep(*args), 50),
         plain_ms=time_ms(lambda: ref.fused_ell_sweep_ref(*args), 10),
         library_ms=None, bound_ms=t_b[0], bound_by=t_b[1])
+    log_share("fused_ell_sweep", out["fused_ell_sweep"])
     del c_ell, got
 
     # -- block_diag_matvec: P blocks of bs², drawn from the seed
     p, bs = bplan.p, bplan.bs
-    A = torch.randn((p, bs, bs), generator=gen, device=dev)
-    x = torch.randn((p, bs), generator=gen, device=dev)
-    y = ops.block_diag_matvec(A, x)
-    # 1e-5 of Σ|A||x| per row: dot products of length bs in two orders; for
-    # random signs their gap grows as √bs·2⁻²⁴ ≈ 1.4e-6 of it at bs = 512
-    scale = [ref.block_diag_matvec_ref(A.abs(), x.abs())]
-    err = check_close("block_diag_matvec", [y], [ref.block_diag_matvec_ref(A, x)],
-                      1e-5, scale)
-    check_close("block_diag_matvec library (bmm)",
-                [torch.bmm(A, x[:, :, None])[:, :, 0]], [y], 1e-5, scale)
-    t_b = bound(nbytes(A, x, y), 2 * p * bs * bs)
-    out["block_diag_matvec"] = dict(
-        max_abs_err=err, shape=[p, bs, bs],
-        ms=time_ms(lambda: ops.block_diag_matvec(A, x), 30),
-        plain_ms=time_ms(lambda: ref.block_diag_matvec_ref(A, x), 10),
-        library_ms=time_ms(lambda: torch.bmm(A, x[:, :, None]), 30),
-        bound_ms=t_b[0], bound_by=t_b[1])
-    del A, x, y, scale
+    out["block_diag_matvec"] = block_diag_entry(
+        "block_diag_matvec", torch.randn((p, bs, bs), generator=gen, device=dev),
+        torch.randn((p, bs), generator=gen, device=dev))
 
     # -- where an IRLS iteration's time goes outside the kernels: the block
     # assembly and the batched Cholesky + explicit inverse (torch)
@@ -373,14 +419,51 @@ def kernels_alone(prob, inst, cfg, seed: int):
     return out
 
 
-def log_share(name, r, library):
-    """Logs a kernel's share of its bound and its time over the library
-    call's, and keeps both in its record."""
+def log_share(name, r, library=None):
+    """Logs a kernel's share of its bound and, where a library call computes
+    the same function, its time over that call's, and keeps both in its
+    record."""
     r["bound_share"] = r["bound_ms"] / r["ms"]
-    r["vs_library"] = r["ms"] / r["library_ms"]
-    log(f"  {name}: {r['ms']:.4f} ms, {r['bound_share']:.3f} of its bound "
-        f"({r['bound_ms']:.4f} ms), {r['vs_library']:.3f}x the {library} "
-        f"call ({r['library_ms']:.4f} ms)")
+    text = (f"  {name}: {r['ms']:.4f} ms, {r['bound_share']:.3f} of its bound "
+            f"({r['bound_ms']:.4f} ms)")
+    if library is not None:
+        r["vs_library"] = r["ms"] / r["library_ms"]
+        text += (f", {r['vs_library']:.3f}x the {library} call "
+                 f"({r['library_ms']:.4f} ms)")
+    log(text)
+
+
+def block_diag_entry(name, A, x):
+    """``block_diag_matvec`` on blocks A [P, bs, bs] and x [P, bs]: held
+    against its plain version and the ``torch.bmm`` call, then timed in
+    turns with ``torch.bmm``, three times each; ``ms`` and ``library_ms``
+    are the medians."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    y = ops.block_diag_matvec(A, x)
+    # 1e-5 of Σ|A||x| per row: dot products of length bs in two orders; for
+    # random signs their gap grows as √bs·2⁻²⁴ ≈ 1.4e-6 of it at bs = 512
+    scale = [ref.block_diag_matvec_ref(A.abs(), x.abs())]
+    err = check_close(name, [y], [ref.block_diag_matvec_ref(A, x)], 1e-5,
+                      scale)
+    check_close(f"{name} library (bmm)",
+                [torch.bmm(A, x[:, :, None])[:, :, 0]], [y], 1e-5, scale)
+    del scale
+    p, bs = x.shape
+    t_b = bound(nbytes(A, x, y), 2 * p * bs * bs)
+    med, runs = alternate_ms({
+        "kernel": lambda: ops.block_diag_matvec(A, x),
+        "bmm": lambda: torch.bmm(A, x[:, :, None])}, 30)
+    r = dict(max_abs_err=err, shape=list(A.shape), ms=med["kernel"],
+             plain_ms=time_ms(lambda: ref.block_diag_matvec_ref(A, x), 10),
+             library_ms=med["bmm"], bound_ms=t_b[0], bound_by=t_b[1],
+             runs=runs)
+    log(f"  {name} timings in turns: kernel {runs['kernel']}, torch.bmm "
+        f"{runs['bmm']} ms")
+    log_share(name, r, "torch.bmm")
+    return r
 
 
 def ell_csr(cols, valid, vals, diag):
@@ -410,9 +493,20 @@ def kernel_entry(err, shape, fn, plain, reps, plain_reps, bound_ms):
                 bound_ms=bound_ms[0], bound_by=bound_ms[1])
 
 
-def edge_reweight_alone(prob, eps: float, seed: int):
+def device_time(name, r, fn, reps):
+    """A launch about as short as its wrapper's host work: adds
+    ``graph_ms``, its device time in a CUDA graph, beside ``ms``, the time
+    of back-to-back wrapper calls (``time_ms``); logs both, and the graph
+    time's share of the bound."""
+    r["graph_ms"] = graph_ms(fn, reps)
+    log(f"  {name}: {r['ms']:.4f} ms a call back to back, "
+        f"{r['graph_ms']:.4f} ms a launch in a CUDA graph "
+        f"({r['bound_ms'] / r['graph_ms']:.3f} of its bound)")
+
+
+def edge_reweight_alone(prob, eps: float, seed: int, lane_counts=(1, 8)):
     """Phase 7: ``edge_reweight`` at the COO shapes of the instance, for one
-    instance and for a serving batch of 8 lanes."""
+    instance and for a serving batch of 8 lanes (``lane_counts``)."""
     import torch
 
     from repro_torch.kernels import ops, ref
@@ -432,7 +526,7 @@ def edge_reweight_alone(prob, eps: float, seed: int):
         return torch.where((i >= 0) & (i < n), i, torch.full_like(i, n))
 
     out = {}
-    for lanes in (1, 8):
+    for lanes in lane_counts:
         lead = () if lanes == 1 else (lanes,)
         c = g.c * (0.8 + 0.4 * torch.rand(lead + (m,), generator=gen,
                                           device=dev))
@@ -463,8 +557,9 @@ def edge_reweight_alone(prob, eps: float, seed: int):
 
 def batched_ell_kernels(prob, lanes: int, eps: float, seed: int):
     """The batched ``ell_spmv`` and ``fused_ell_sweep``: ``lanes`` lanes of
-    values over the instance's one ELL plan, against their plain versions,
-    at the tolerances of phase 3."""
+    values over the instance's one ELL plan, and ``block_diag_matvec`` on
+    the lanes' ``lanes``·P blocks as one flat batch, against their plain
+    versions, at the tolerances of phase 3."""
     import torch
 
     from repro_torch.core import laplacian as lap
@@ -491,6 +586,8 @@ def batched_ell_kernels(prob, lanes: int, eps: float, seed: int):
         err, vals.shape, lambda: ops.ell_spmv(cols, vals, diag, v),
         lambda: ref.ell_spmv_ref(cols, vals, diag, v), 100, 20,
         bound(nbytes(cols, vals, diag, v, y), lanes * (2 * nnz + 2 * n)))
+    device_time(f"ell_spmv B={lanes}", out["ell_spmv"],
+                lambda: ops.ell_spmv(cols, vals, diag, v), 100)
     # the library call: the B lanes as one block-diagonal CSR matrix
     csr = ell_csr(cols, valid, vals, diag)
     vf = v.flatten()
@@ -512,7 +609,17 @@ def batched_ell_kernels(prob, lanes: int, eps: float, seed: int):
         lambda: ref.fused_ell_sweep_ref(*args), 50, 10,
         bound(nbytes(cols, c_ell, c_s, c_t, v, *got),
               lanes * (10 * nnz + 12 * n)))
+    device_time(f"fused_ell_sweep B={lanes}", out["fused_ell_sweep"],
+                lambda: ops.fused_ell_sweep(*args), 50)
+    log_share(f"fused_ell_sweep B={lanes}", out["fused_ell_sweep"])
     del c, c_ell, c_s, c_t, v, got, args
+    # the lanes' inverses as gather_blocks flattens them: [lanes·P, bs, bs]
+    bplan = prob.block_plan(dev)
+    p, bs = lanes * bplan.p, bplan.bs
+    out["block_diag_matvec"] = block_diag_entry(
+        f"block_diag_matvec B={lanes}",
+        torch.randn((p, bs, bs), generator=gen, device=dev),
+        torch.randn((p, bs), generator=gen, device=dev))
     torch.cuda.empty_cache()
     for name, r in out.items():
         log(f"  {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
@@ -1119,7 +1226,7 @@ def main(argv=None) -> int:
     (out_dir / "chip_smoke_build.log").write_text(
         "\n".join(f"== {name} ({r['seconds']:.1f} s)\n{r['log']}"
                   for name, r in built.items()))
-    report["redesigned"] = build_facts(built)
+    report["redesigned"] = build_facts()
     card = card_line()
     report["card"] = card
     log(f"[build] {len(built)} kernels built in {report['build_s']:.1f} s "
@@ -1244,20 +1351,24 @@ def main(argv=None) -> int:
                            contour=cut_k.meta["coarse_n"], seconds=t_k)
     report["two_level"] = small
 
-    # -- 7. edge_reweight alone at the COO shapes ------------------------------
+    # -- 7. edge_reweight alone at the COO shapes of both serving tenants ---
+    t = time.perf_counter()
+    frame = frame_instance(args.frame, args.seed + 2)
+    t_frame = time.perf_counter() - t
     prob_coo = Problem.build(inst, n_blocks=1)
     er = edge_reweight_alone(prob_coo, cfg.eps, args.seed)
     report["edge_reweight"] = {f"B={b}": r for b, r in er.items()}
     kern["edge_reweight"] = er[8]          # the serving batch's shape
     del prob_coo
+    er_frame = edge_reweight_alone(Problem.build(frame, n_blocks=1), cfg.eps,
+                                   args.seed, lane_counts=(8,))
+    report["edge_reweight"]["frame B=8"] = er_frame[8]
     torch.cuda.empty_cache()
 
     # -- 8. the serving path -------------------------------------------------
-    t = time.perf_counter()
-    frame = frame_instance(args.frame, args.seed + 2)
     log(f"[serve] tenants: volume n={inst.n} m={inst.graph.m}, frame "
         f"{args.frame}² n={frame.n} m={frame.graph.m} (made in "
-        f"{time.perf_counter() - t:.1f} s)")
+        f"{t_frame:.1f} s)")
     serve = serving_phase({"volume": inst, "frame": frame}, SERVE_ROUNDS,
                           args.seed)
     del frame

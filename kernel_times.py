@@ -1,0 +1,135 @@
+"""Times the batched ELL path's three kernels of one tree of the port, by
+both of ``chip_smoke.py``'s methods, and their wrappers' host time.
+
+    python3 kernel_times.py [--src DIR] [--side 48] [--lanes 4] [--out FILE]
+
+``--src`` names the ``src`` directory whose ``repro_torch`` is timed (by
+default this checkout's), so that two commits can be compared on one card
+in one run: unpack the other commit into a directory that git ignores and
+run parent, change, change, parent.  The inputs are those of
+``chip_smoke.py``'s phase 9 (``batched_ell_kernels``), made from ``--seed``
+on the card: B = ``--lanes`` lanes of values over the ELL plan of a
+``--side``³ 26-connected grid, and the lanes' [B·P, bs, bs] block inverses
+(8³-voxel boxes).  Per kernel, three rounds of:
+
+- ``ms``: back-to-back wrapper calls between two CUDA events
+  (``chip_smoke.time_ms``);
+- ``graph_ms``: the same calls captured in a CUDA graph and replayed, the
+  launches' device time (``chip_smoke.graph_ms``);
+- ``host_us``: the wrapper's host time per call, the wall time of a loop of
+  calls that never waits on the card (far fewer launches than its queue
+  holds), over their number.
+
+Prints the card's name and power limit, one line per kernel and, last, one
+JSON object with every round; ``--out`` writes the same object to a file.
+Needs one CUDA card and ``nvcc``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+
+def host_us(fn, calls: int) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    wall = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return wall / calls * 1e6
+
+
+def kernel_calls(side: int, lanes: int, seed: int) -> dict:
+    """The wrapper calls to time, by kernel, on phase 9's inputs."""
+    import torch
+
+    import chip_smoke as smoke
+    from repro_torch.core import Problem
+    from repro_torch.core import laplacian as lap
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    labels, n_blocks = smoke.box_labels(side)
+    prob = Problem.build(smoke.segmentation_grid(side, seed),
+                         n_blocks=n_blocks, labels=labels)
+    plan = prob.ell_plan(dev)
+    g = prob.device_graph(torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    cols = plan.cols
+    n, k = cols.shape
+    valid = torch.zeros((n, k), dtype=torch.bool, device=dev)
+    valid[plan.slot_rows, plan.slot_cols] = True
+    vals = -torch.rand((lanes, n, k), generator=gen, device=dev) * valid
+    diag = torch.rand((lanes, n), generator=gen, device=dev) + (-vals).sum(-1)
+    v = torch.rand((lanes, n), generator=gen, device=dev)
+    c = g.c * (0.8 + 0.4 * torch.rand((lanes, g.m), generator=gen, device=dev))
+    sweep = (cols, lap.ell_edge_weights(plan, c),
+             g.c_s.expand(lanes, n).contiguous(),
+             g.c_t.expand(lanes, n).contiguous(), v, 1e-6)
+    bplan = prob.block_plan(dev)
+    p, bs = lanes * bplan.p, bplan.bs
+    A = torch.randn((p, bs, bs), generator=gen, device=dev)
+    x = torch.randn((p, bs), generator=gen, device=dev)
+    return {"ell_spmv": lambda: ops.ell_spmv(cols, vals, diag, v),
+            "fused_ell_sweep": lambda: ops.fused_ell_sweep(*sweep),
+            "block_diag_matvec": lambda: ops.block_diag_matvec(A, x)}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--side", type=int, default=48)
+    ap.add_argument("--lanes", type=int, default=4)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, str(Path(args.src).resolve()))
+
+    import torch
+
+    import chip_smoke as smoke
+
+    if not torch.cuda.is_available():
+        print("no CUDA card", file=sys.stderr)
+        return 1
+    import repro_torch
+    from repro_torch.kernels import build
+
+    build.build_all(["ell_spmv", "fused_ell_sweep", "block_diag_matvec"])
+    card = smoke.card_line()
+    print(card, flush=True)
+    calls = kernel_calls(args.side, args.lanes, args.seed)
+    reps = {"ell_spmv": 100, "fused_ell_sweep": 50, "block_diag_matvec": 30}
+    runs = {}
+    for name, fn in calls.items():
+        fn()
+        r = runs[name] = {"ms": [], "graph_ms": [], "host_us": []}
+        for _ in range(args.rounds):
+            r["ms"].append(smoke.time_ms(fn, reps[name]))
+            r["graph_ms"].append(smoke.graph_ms(fn, reps[name]))
+            r["host_us"].append(host_us(fn, reps[name]))
+        med = {key: statistics.median(t) for key, t in r.items()}
+        r["median"] = med
+        print(f"{name}: {med['ms']:.4f} ms a call back to back, "
+              f"{med['graph_ms']:.4f} ms a launch in a CUDA graph, "
+              f"{med['host_us']:.1f} us of host time a call", flush=True)
+    report = {"src": str(Path(repro_torch.__file__).parent), "card": card,
+              "side": args.side, "lanes": args.lanes, "kernels": runs}
+    if args.out:
+        Path(args.out).write_text(json.dumps(report, indent=1))
+    print(json.dumps(report))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

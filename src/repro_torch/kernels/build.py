@@ -75,7 +75,8 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     """Compile every named kernel that has no current build, one nvcc per
     source, all started together.  Returns ``{name: {"seconds", "log"}}``
     for the sources compiled (``log`` is nvcc's output: ptxas register and
-    shared-memory use).  Raises with the compiler's output on a failure."""
+    shared-memory use, kept beside the library for ``build_log``).  Raises
+    with the compiler's output on a failure."""
     names = list(SOURCES if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -99,10 +100,18 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
             failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
             tmp.unlink(missing_ok=True)
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)   # atomic: a reader never sees half a file
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return report
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for the current build of kernel ``name`` ("" if it was
+    built before its log was kept, or not at all)."""
+    path = library_path(name).with_suffix(".log")
+    return path.read_text() if path.exists() else ""
 
 
 def load(name: str) -> ctypes.CDLL:

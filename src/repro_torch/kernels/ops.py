@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import torch
 
@@ -36,7 +36,7 @@ _SIGNATURES = {
     "ell_spmv_bf16": ("ell_spmv", [_P] * 5 + [_I] * 5 + [_P]),
     "fused_ell_sweep_f32": ("fused_ell_sweep",
                             [_P] * 5 + [_F] + [_P] * 4 + [_I] * 5 + [_P]),
-    "block_diag_matvec_f32": ("block_diag_matvec", [_P] * 3 + [_I] * 2 + [_P]),
+    "block_diag_matvec_f32": ("block_diag_matvec", [_P] * 3 + [_I] * 5 + [_P]),
     "edge_reweight_f32": ("edge_reweight",
                           [_P] * 4 + [_F, _P, _L, _I, _I, _P]),
     "flash_fwd_bf16": ("flash_fwd", [_P] * 5 + [_I] * 6
@@ -118,12 +118,85 @@ def _lanes(t: torch.Tensor, inner: int) -> int:
     return t.shape[0]
 
 
+def _log2_cover(n: int, cap_log2: int) -> int:
+    """log2 of the smallest power of two ≥ n, at most 2^cap_log2."""
+    g = 0
+    while (1 << g) < n and g < cap_log2:
+        g += 1
+    return g
+
+
 def _group(k: int) -> int:
     """Lanes per row: the smallest power of two >= k, at most a warp."""
-    g = 1
-    while g < k and g < 32:
-        g *= 2
-    return g
+    return 1 << _log2_cover(k, 5)
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    """Every tensor starts on a 16-byte boundary (the kernels' 16-byte
+    loads and stores)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+# the ELL sweep's vector variant loads 4 slots at a time, k/4 ≤ 8 threads
+# per row and at most 4 chunks per thread
+_VEC_MAX_K = 128
+
+
+def _vector_group_log2(k: int, *tensors: torch.Tensor) -> int:
+    """The variant of the ELL sweep for width ``k``: log2 of the vector
+    variant's threads per row (the smallest power of two ≥ k/4, at most 8),
+    or −1 for the scalar variant (``_group(k)`` lanes per row, which the
+    kernel derives from k) where k % 4 ≠ 0, k > 128, k = 0 or a tensor
+    read with 16-byte loads (``cols``, ``c_ell``) does not start on a
+    16-byte boundary."""
+    if k == 0 or k % 4 or k > _VEC_MAX_K or not _aligned(*tensors):
+        return -1
+    return _log2_cover(k // 4, 3)
+
+
+# block_diag_matvec's vector variant (csrc/block_diag_matvec.cu: WARPS,
+# IN_FLIGHT): warps per block, float4 loads of A in flight per thread (a
+# unit's loads); units per warp (the grid is many short blocks); rows up to
+# 512 floats
+_BDM_WARPS, _BDM_IN_FLIGHT, _BDM_UNITS_PER_WARP = 8, 8, 2
+_BDM_VEC_MAX_BS = 512
+
+
+class BdmPlan(NamedTuple):
+    """Launch geometry of ``block_diag_matvec``: a group of 2^g_log2 lanes
+    per row reading ``nch`` float4s each, on ``grid`` thread blocks.  The
+    kernel cuts the P·bs rows into units of R = ``_bdm_unit_rows`` rows of
+    one block, ⌈bs/R⌉ units per block (unit u holds rows (u mod ⌈bs/R⌉)·R
+    + [0, R) of block u div ⌈bs/R⌉, those below bs); thread block b takes
+    units [b·U/grid, (b+1)·U/grid) of the U = P·⌈bs/R⌉, and its warp i the
+    units b·U/grid + i, + i + W, ... of that range (W = ``_BDM_WARPS``).
+    g_log2 = −1: the scalar variant, one block per p."""
+    g_log2: int
+    nch: int
+    grid: int
+
+
+def _bdm_unit_rows(g_log2: int, nch: int) -> int:
+    """Rows of a unit of the vector variant: 32/G rows a warp step, one
+    step per ``nch`` of a thread's ``_BDM_IN_FLIGHT`` loads (the kernel's
+    entry derives the same)."""
+    return (32 >> g_log2) * (_BDM_IN_FLIGHT // nch)
+
+
+def _bdm_plan(p: int, bs: int, aligned: bool = True) -> BdmPlan:
+    """The variant and grid of ``block_diag_matvec`` for P = p blocks of
+    bs²: the vector variant where bs % 4 = 0, bs ≤ 512 and A and x are
+    ``aligned`` to 16 bytes, with ``_BDM_UNITS_PER_WARP`` units per warp;
+    else the scalar one."""
+    if bs % 4 or bs > _BDM_VEC_MAX_BS or not aligned:
+        return BdmPlan(-1, 0, p)
+    k4 = bs // 4
+    g_log2 = _log2_cover(k4, 5)
+    nch = -(-k4 >> g_log2)
+    nch = 4 if nch == 3 else nch           # the kernel has 1, 2 and 4
+    units = p * -(-bs // _bdm_unit_rows(g_log2, nch))
+    grid = max(1, -(-units // (_BDM_WARPS * _BDM_UNITS_PER_WARP)))
+    return BdmPlan(g_log2, nch, grid)
 
 
 def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, diag: torch.Tensor,
@@ -183,7 +256,7 @@ def fused_ell_sweep(cols: torch.Tensor, c_ell: torch.Tensor,
     _launch("fused_ell_sweep_f32", v.device, cols.data_ptr(),
             c_ell.data_ptr(), c_s.data_ptr(), c_t.data_ptr(), v.data_ptr(),
             eps_sq(eps), vals.data_ptr(), diag.data_ptr(), r_s.data_ptr(),
-            r_t.data_ptr(), n, k, nv, _group(k), b)
+            r_t.data_ptr(), n, k, nv, _vector_group_log2(k, cols, c_ell), b)
     _count("fused_ell_sweep")
     return vals, diag, r_s, r_t
 
@@ -204,8 +277,9 @@ def block_diag_matvec(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     _require(bs <= _MAX_BS, f"block size {bs} exceeds {_MAX_BS}")
     _contiguous(blocks=blocks, x=x)
     y = torch.empty((p, bs), dtype=x.dtype, device=x.device)
+    plan = _bdm_plan(p, bs, _aligned(blocks, x))
     _launch("block_diag_matvec_f32", x.device, blocks.data_ptr(),
-            x.data_ptr(), y.data_ptr(), p, bs)
+            x.data_ptr(), y.data_ptr(), p, bs, *plan)
     _count("block_diag_matvec")
     return y
 

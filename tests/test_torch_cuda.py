@@ -439,3 +439,140 @@ def test_flash_fwd_rejects_misaligned_layouts(cuda):
         ops.flash_fwd(q, k, v, g_per_kv=1)
     with pytest.raises(ValueError, match="positive scale"):
         ops.flash_fwd(q, k, v, g_per_kv=2, scale=-0.1)
+
+
+# -- the redesigned graph kernels: fused_ell_sweep's two variants,
+# block_diag_matvec's persistent vector variant and its scalar one ----------
+
+def _sweep_expected(cols, c_ell, c_s, c_t, v, eps):
+    """The plain version with columns outside [0, nv) pointed at an
+    appended 0 entry of v (the kernels gather 0 there)."""
+    nv = v.shape[-1]
+    v_pad = torch.cat([v, torch.zeros_like(v[..., :1])], dim=-1)
+    return ref.fused_ell_sweep_ref(_zero_filled(cols, nv), c_ell, c_s, c_t,
+                                   v_pad, eps)
+
+
+def _held(got, want, rtol):
+    """|got − want| ≤ rtol·|want| entry by entry, for every output."""
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        d = (g - w).abs()
+        assert bool((d <= rtol * w.abs()).all()), float((d / w.abs()).max())
+
+
+# k % 4 == 0 takes the vector variant (4, 8, 32: one 16-byte chunk per
+# thread; 64: two; 128: four), 9 and 33 the scalar one; B = 12 spans two
+# chunks of lanes.  rtol 3e-5 of each entry: each r is c²·rsqrt(·) within 2
+# ulp, each diagonal a sum of positive terms in another order.
+@pytest.mark.parametrize("k", [4, 8, 9, 32, 33, 64, 128])
+@pytest.mark.parametrize("lanes", [1, 3, 8, 12])
+def test_fused_ell_sweep_variants(cuda, k, lanes):
+    """Halo-extended v (nv > n), columns out of range, zero weights and
+    absent terminals, one launch per call."""
+    rng = np.random.default_rng(10 * k + lanes)
+    n = 1000 + k
+    nv = n + 37
+    lead = () if lanes == 1 else (lanes,)
+    cols = rng.integers(0, nv, size=(n, k)).astype(np.int32)
+    cols[rng.uniform(size=(n, k)) < 0.02] = -1
+    cols[rng.uniform(size=(n, k)) < 0.02] = nv + 3
+    c_ell = rng.uniform(0.1, 3.0, size=lead + (n, k)).astype(np.float32)
+    c_ell[rng.uniform(size=c_ell.shape) < 0.4] = 0.0
+    c_s = rng.uniform(0, 2, size=lead + (n,)).astype(np.float32)
+    c_t = rng.uniform(0, 2, size=lead + (n,)).astype(np.float32)
+    c_s[rng.uniform(size=c_s.shape) < 0.3] = 0.0
+    c_t[rng.uniform(size=c_t.shape) < 0.3] = 0.0
+    v = rng.uniform(0, 1, size=lead + (nv,)).astype(np.float32)
+    args = _dev(cuda, cols, c_ell, c_s, c_t, v)
+    before = ops.launches["fused_ell_sweep"]
+    got = ops.fused_ell_sweep(*args, 1e-6)
+    torch.cuda.synchronize()
+    assert ops.launches["fused_ell_sweep"] == before + 1
+    _held(got, _sweep_expected(*args, 1e-6), 3e-5)
+
+
+def test_fused_ell_sweep_misaligned_takes_scalar_variant(cuda):
+    """c_ell off a 16-byte boundary: the scalar variant gives the same
+    result as the vector variant on an aligned copy."""
+    rng = np.random.default_rng(3)
+    n, k = 777, 32
+    cols = rng.integers(0, n, size=(n, k)).astype(np.int32)
+    c_ell = rng.uniform(0.1, 3.0, size=(n, k)).astype(np.float32)
+    c_s, c_t = (rng.uniform(0, 2, size=n).astype(np.float32) for _ in range(2))
+    v = rng.uniform(0, 1, size=n).astype(np.float32)
+    c, w, s, t, x = _dev(cuda, cols, c_ell, c_s, c_t, v)
+    buf = torch.zeros(n * k + 1, device=cuda)
+    shifted = buf[1:].view(n, k)
+    shifted.copy_(w)
+    assert ops._vector_group_log2(k, c, shifted) == -1
+    want = ref.fused_ell_sweep_ref(c, w, s, t, x, 1e-6)
+    for c_in in (w, shifted):
+        _held(ops.fused_ell_sweep(c, c_in, s, t, x, 1e-6), want, 3e-5)
+
+
+def _bdm_held(A, x):
+    """The kernel against the plain version at 1e-5 of Σ|A||x| per row (dot
+    products of length bs in another order), one launch per call."""
+    before = ops.launches["block_diag_matvec"]
+    y = ops.block_diag_matvec(A, x)
+    torch.cuda.synchronize()
+    assert ops.launches["block_diag_matvec"] == before + 1
+    want = ref.block_diag_matvec_ref(A, x)
+    scale = ref.block_diag_matvec_ref(A.abs(), x.abs())
+    d = (y - want).abs()
+    assert bool((d <= 1e-5 * scale).all()), float((d / scale).max())
+
+
+# bs % 4 == 0 up to 512 takes the vector variant (16, 100: one float4 per
+# lane, G = 4 and 32; 128; 200: two; 512: four), 30 and 600 the scalar one;
+# p from one block of the grid to thousands
+@pytest.mark.parametrize("bs", [16, 30, 100, 128, 200, 512, 600])
+@pytest.mark.parametrize("p", [1, 7, 300, 2000])
+def test_block_diag_matvec_variants(cuda, bs, p):
+    if bs == 600 and p == 2000:
+        p = 900        # 2.9 GB of blocks is enough for the scalar variant
+    gen = torch.Generator(device=cuda).manual_seed(bs * 7 + p)
+    A = torch.randn((p, bs, bs), generator=gen, device=cuda)
+    x = torch.randn((p, bs), generator=gen, device=cuda)
+    _bdm_held(A, x)
+
+
+def test_block_diag_matvec_lanes_of_blocks(cuda):
+    """A batch's explicit inverses as the batched preconditioner makes them,
+    [B·P, bs, bs] (B = 3 lanes of a 16³ grid's 8³ boxes), and x gathered
+    from the lanes' vectors."""
+    from repro_torch.core import DeviceGraph, Problem, laplacian as lap
+    from repro_torch.core import precond as pc
+    from repro_torch.graphs import generators as gen
+
+    side = 16
+    inst = gen.segmentation_instance(gen.grid_3d(side, side, side, conn=26,
+                                                 seed=0), (side,) * 3, seed=1)
+    idx = np.arange(side ** 3)
+    z, y, x = idx // side ** 2, (idx // side) % side, idx % side
+    prob = Problem.build(inst, n_blocks=8,
+                         labels=(z // 8) * 4 + (y // 8) * 2 + x // 8)
+    g = prob.device_graph(torch.float32, device=cuda)
+    plan = prob.block_plan(cuda)
+    rng = np.random.default_rng(4)
+    scale = torch.as_tensor(rng.uniform(0.5, 2.0, (3, 1)), dtype=torch.float32,
+                            device=cuda)
+    gb = DeviceGraph(src=g.src, dst=g.dst, c=g.c * scale, c_s=g.c_s * scale,
+                     c_t=g.c_t * scale)
+    M = pc.factorize_blocks(plan, lap.initial_weights(gb), explicit_inverse=True)
+    assert M.inv.shape == (3 * plan.p, plan.bs, plan.bs)
+    v = torch.as_tensor(rng.standard_normal((3, g.n)), dtype=torch.float32,
+                        device=cuda)
+    _bdm_held(M.inv, pc.gather_blocks(plan, v))
+
+
+def test_block_diag_matvec_misaligned_takes_scalar_variant(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    A = torch.randn((40, 128, 128), generator=gen, device=cuda)
+    buf = torch.zeros(A.numel() + 1, device=cuda)
+    shifted = buf[1:].view(A.shape)
+    shifted.copy_(A)
+    x = torch.randn((40, 128), generator=gen, device=cuda)
+    assert ops._bdm_plan(40, 128, ops._aligned(shifted, x)).g_log2 == -1
+    _bdm_held(shifted, x)

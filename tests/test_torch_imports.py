@@ -73,3 +73,27 @@ def test_port_sources_name_no_jax_or_repro():
             assert not s.startswith(("import jax", "from jax")), (path, s)
             assert not s.startswith(("import repro.", "from repro.",
                                      "from repro import")), (path, s)
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "kernel_times.py"])
+def test_card_scripts_stand_alone_and_need_a_card(script):
+    """The port's scripts at the repo's root import neither jax nor repro,
+    and without a CUDA card they exit with a code other than 0 and print
+    no result."""
+    import ast
+
+    path = SRC.parent / script
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            mods = [node.module or ""]
+        else:
+            continue
+        for mod in mods:
+            assert mod.split(".")[0] not in ("jax", "repro"), (script, mod)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, str(path)], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout and '"kernels"' not in out.stdout

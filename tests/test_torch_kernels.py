@@ -305,6 +305,19 @@ def test_build_names_each_library_by_its_source(monkeypatch, tmp_path):
         build.nvcc_path()
 
 
+def test_build_log_reads_the_log_beside_the_library(monkeypatch, tmp_path):
+    """nvcc's output is kept beside the library it built, under the
+    library's own (hashed) name, so a later run reads the current build's
+    ptxas lines; a library built without one reads as ""."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    for name in build.SOURCES:
+        assert build.build_log(name) == ""
+    log = build.library_path("block_diag_matvec").with_suffix(".log")
+    log.write_text("ptxas info    : Used 64 registers\n")
+    assert "64 registers" in build.build_log("block_diag_matvec")
+    assert build.build_log("fused_ell_sweep") == ""
+
+
 def _model_layout(rng, b, sq, sk, h, kv, d):
     return tuple(torch.as_tensor(rng.standard_normal(s).astype(np.float32))
                  for s in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d)))
@@ -358,3 +371,115 @@ def test_flash_fwd_layout_checks_raise_on_cpu():
     out, lse = ops.flash_fwd(q, k, v, g_per_kv=2)
     assert out.shape == q.shape and lse.shape == (8, 8)
     assert ops.launches["flash_fwd"] == 0
+
+
+# -- the launch geometry of the redesigned kernels (plain Python in ops) ----
+
+def _kernel_constants(source: str) -> dict:
+    """``constexpr int NAME = value;`` lines of a kernel source."""
+    import re
+
+    text = (build.CSRC / source).read_text()
+    return {m.group(1): int(m.group(2)) for m in
+            re.finditer(r"constexpr int (\w+) = (\d+);", text)}
+
+
+def test_block_diag_matvec_plan_matches_kernel_source():
+    """The wrapper's warps per block and loads in flight per thread (the
+    unit's size) are the kernel's own."""
+    k = _kernel_constants("block_diag_matvec.cu")
+    assert (k["WARPS"], k["IN_FLIGHT"]) == (ops._BDM_WARPS,
+                                            ops._BDM_IN_FLIGHT)
+
+
+@pytest.mark.parametrize("p,bs", [(1, 16), (7, 100), (300, 200), (2000, 128),
+                                  (1728, 512), (864, 512), (5, 4), (3, 8),
+                                  (2, 24), (11, 332), (1, 512), (3, 256),
+                                  (13, 48), (40, 384), (17, 12), (6, 508),
+                                  (9, 64), (100, 200), (2, 36), (1, 4)])
+def test_block_diag_matvec_plan_covers_every_row_once(p, bs):
+    """Walked as the kernel walks it (block b's range of units, its warp i
+    every W-th unit from b's start + i, (p, unit within p) advanced by W),
+    the vector plan covers every row of every block exactly once, with
+    block and warp loads differing by at most one unit and no warp holding
+    more than ``_BDM_UNITS_PER_WARP`` units."""
+    plan = ops._bdm_plan(p, bs)
+    assert plan.g_log2 >= 0 and plan.nch in (1, 2, 4)
+    g = 1 << plan.g_log2
+    # a row's G lanes hold all bs/4 float4s; a unit is RPT steps of 32/G rows
+    assert plan.nch * g * 4 >= bs and (plan.nch == 1 or g == 32)
+    # the units as the kernel's entry derives them
+    unit_rows = (32 // g) * (ops._BDM_IN_FLIGHT // plan.nch)
+    assert ops._bdm_unit_rows(plan.g_log2, plan.nch) == unit_rows
+    units_per_p = -(-bs // unit_rows)
+    units = p * units_per_p
+    w = ops._BDM_WARPS
+    assert plan.grid == -(-units // (w * ops._BDM_UNITS_PER_WARP))
+    seen = np.zeros((p, bs), dtype=np.int64)
+    per_block, per_warp = [], []
+    for b in range(plan.grid):
+        u0 = b * units // plan.grid
+        u1 = (b + 1) * units // plan.grid
+        per_block.append(u1 - u0)
+        for i in range(w):
+            u = u0 + i
+            if u >= u1:
+                per_warp.append(0)
+                continue
+            blk, up = divmod(u, units_per_p)
+            count = 0
+            while u < u1:
+                assert (blk, up) == divmod(u, units_per_p)
+                rows = up * unit_rows + np.arange(unit_rows)
+                seen[blk, rows[rows < bs]] += 1
+                count += 1
+                u += w
+                up += w
+                while up >= units_per_p:
+                    up -= units_per_p
+                    blk += 1
+            per_warp.append(count)
+    assert (seen == 1).all()
+    assert max(per_block) - min(per_block) <= 1
+    busy = [c for c in per_warp if c]
+    assert max(busy) - min(busy) <= 1
+    assert max(busy) <= ops._BDM_UNITS_PER_WARP
+
+
+@pytest.mark.parametrize("bs,aligned", [(30, True), (102, True), (513, True),
+                                        (600, True), (1000, True),
+                                        (512, False), (16, False)])
+def test_block_diag_matvec_plan_scalar_for_other_shapes(bs, aligned):
+    """A bs that is not a multiple of 4, above 512, or A or x off a 16-byte
+    boundary takes the scalar variant: one block per p."""
+    plan = ops._bdm_plan(9, bs, aligned)
+    assert plan.g_log2 == -1 and plan.grid == 9
+
+
+@pytest.mark.parametrize("k,want", [(4, 0), (8, 1), (12, 2), (16, 2), (32, 3),
+                                    (64, 3), (100, 3), (128, 3), (9, -1),
+                                    (17, -1), (26, -1), (33, -1), (132, -1),
+                                    (0, -1)])
+def test_ell_sweep_variant_by_width(k, want):
+    """The sweep's vector variant takes k % 4 == 0 up to 128, with G the
+    smallest power of two ≥ k/4 and at most 8 threads a row; every other
+    width takes the scalar variant."""
+    t = torch.zeros(8)
+    assert ops._vector_group_log2(k, t, t) == want
+    if want >= 0:
+        g = 1 << want
+        nch = -(-k // 4 // g)
+        assert nch in (1, 2, 4) and nch * g * 4 >= k
+
+
+def test_ell_sweep_variant_needs_16_byte_boundaries():
+    """A tensor of the vector variant's 16-byte loads (``cols``, ``c_ell``)
+    that starts off a 16-byte boundary sends the sweep to the scalar
+    variant."""
+    buf = torch.zeros(4 * 32 + 4)
+    aligned = buf[:4 * 32].view(4, 32)
+    assert ops._vector_group_log2(32, aligned, aligned) == 3
+    for off in (1, 2, 3):
+        shifted = buf[off:off + 4 * 32].view(4, 32)
+        assert shifted.is_contiguous()
+        assert ops._vector_group_log2(32, aligned, shifted) == -1
