@@ -8,11 +8,12 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
 
 1. Build the five CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    nvcc for sm_90a (one nvcc per source, all started together), keep the
-   ptxas lines (registers, spills) of the four kernels redesigned for
-   Hopper (``flash_fwd``, ``ell_spmv``, ``block_diag_matvec``,
-   ``fused_ell_sweep``; the last two must not spill) and count the HGMMA
-   instructions in the attention kernel's SASS (there must be some), and
-   print the card's name and power limit.
+   ptxas lines (registers, spills) and the SASS loops' instruction counts
+   of the five kernels redesigned for Hopper (``flash_fwd``, ``ell_spmv``,
+   ``block_diag_matvec``, ``fused_ell_sweep``, ``edge_reweight``; the last
+   three must not spill) and count the HGMMA instructions in the attention
+   kernel's SASS (there must be some), and print the card's name and power
+   limit.
 2. Make the full-width instance: a 26-connected ``side``³ segmentation grid
    (the repo's grid3d family, the shape of the paper's UWO MRI volumes)
    with 8×8×8 voxel boxes as the block-Jacobi partition.
@@ -41,9 +42,11 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    at side 16 against the exact min cut of the host Dinic (rel 1e-6).
 7. ``edge_reweight`` alone at the COO shapes of the 96³ instance, one
    instance (B = 1) and a serving batch (B = 8), and of phase 8's 2-D frame
-   (B = 8), with a few endpoints out of range (they gather 0), held entry
-   by entry against the plain version (bit for bit) and timed beside it and
-   its bound.
+   (B = 8), with 16 endpoints out of range (they gather 0) inside the
+   vector variant's groups of 4 edges, held entry by entry against the
+   plain version (bit for bit) and timed beside it and its bound: back to
+   back (``ms``) and by device time in a CUDA graph (``graph_ms``), each
+   shape's share of its bound logged.
 8. The serving path: ``MinCutServer`` (the server's default config with
    ``use_pallas``, sweep rounding, 4 workers, idle flush, ``max_batch`` 8)
    serves two tenants at full width — the 96³ volume and a 1024×1024
@@ -188,16 +191,41 @@ def segmentation_grid(side: int, seed: int):
 
 # the kernels redesigned for Hopper: their ptxas lines go to the report;
 # those of STRICT must not spill
-REDESIGNED = ("flash_fwd", "ell_spmv", "block_diag_matvec", "fused_ell_sweep")
-STRICT = ("block_diag_matvec", "fused_ell_sweep")
+REDESIGNED = ("flash_fwd", "ell_spmv", "block_diag_matvec", "fused_ell_sweep",
+              "edge_reweight")
+STRICT = ("block_diag_matvec", "fused_ell_sweep", "edge_reweight")
+
+
+def sass_loops(sass: str) -> dict:
+    """The loops of each function of a ``cuobjdump -sass`` listing: for
+    every backward branch, the instructions from its target to it (16 bytes
+    each on sm_90), smallest first.  Per function name, a list of counts."""
+    import re
+
+    loops, name = {}, None
+    for line in sass.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            name = head.group(1)
+            loops[name] = []
+            continue
+        ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        br = ins and re.search(r"\bBRA(?:\.\S+)?\s+(?:[^,]+,\s*)?0x([0-9a-f]+)",
+                              ins.group(2))
+        if br and name is not None:
+            at, to = int(ins.group(1), 16), int(br.group(1), 16)
+            if to < at:
+                loops[name].append((at - to) // 16 + 1)
+    return {fn: sorted(n) for fn, n in loops.items()}
 
 
 def build_facts() -> dict:
     """What the compiler says of the redesigned kernels: per kernel, the
     ptxas lines of each entry function (registers, shared memory, spills;
     from the log kept beside its library, so a build made before this run
-    counts too) and the count of HGMMA (wgmma) instructions in its
-    library's SASS.  Fails if the attention kernel's SASS holds no HGMMA,
+    counts too), the count of HGMMA (wgmma) instructions in its library's
+    SASS and the instruction count of each loop of its SASS
+    (``sass_loops``).  Fails if the attention kernel's SASS holds no HGMMA,
     or if a kernel of ``STRICT`` has no ptxas lines or spills."""
     from repro_torch.kernels import build
 
@@ -211,7 +239,8 @@ def build_facts() -> dict:
                                str(build.library_path(name))],
                               capture_output=True, text=True, timeout=120,
                               check=True).stdout
-        facts[name] = dict(ptxas=lines, hgmma=sass.count("HGMMA"))
+        facts[name] = dict(ptxas=lines, hgmma=sass.count("HGMMA"),
+                           sass_loops=sass_loops(sass))
         spills = [ln for ln in lines if "spill" in ln and not
                   ln.startswith("0 bytes stack frame, 0 bytes spill")]
         log(f"[build] {name}: {sum('registers' in ln for ln in lines)} entry "
@@ -504,7 +533,21 @@ def device_time(name, r, fn, reps):
         f"({r['bound_ms'] / r['graph_ms']:.3f} of its bound)")
 
 
-def edge_reweight_alone(prob, eps: float, seed: int, lane_counts=(1, 8)):
+def edge_reweight_inputs(g, lanes: int, gen):
+    """Per-lane inputs of ``edge_reweight`` at B = ``lanes`` (no lane dim
+    at 1): the instance's weights, each drifted by up to ±20%, and voltages
+    in [0, 1), drawn from ``gen`` on the card."""
+    import torch
+
+    lead = () if lanes == 1 else (lanes,)
+    c = g.c * (0.8 + 0.4 * torch.rand(lead + (g.m,), generator=gen,
+                                      device=g.c.device))
+    v = torch.rand(lead + (g.n,), generator=gen, device=g.c.device)
+    return c, v
+
+
+def edge_reweight_alone(prob, eps: float, seed: int, lane_counts=(1, 8),
+                        label: str = ""):
     """Phase 7: ``edge_reweight`` at the COO shapes of the instance, for one
     instance and for a serving batch of 8 lanes (``lane_counts``)."""
     import torch
@@ -516,9 +559,12 @@ def edge_reweight_alone(prob, eps: float, seed: int, lane_counts=(1, 8)):
     gen = torch.Generator(device=dev).manual_seed(seed + 7)
     n, m = g.n, g.m
     # a few endpoints out of range: the kernel gathers 0 there, as the TPU
-    # kernel's fill_value=0 does; the plain version reads an appended 0
+    # kernel's fill_value=0 does; the plain version reads an appended 0.
+    # They sit in 16 groups of 4 edges (the vector variant's work items),
+    # at each place of a group four times
     src, dst = g.src.clone(), g.dst.clone()
-    bad = torch.randperm(m, generator=gen, device=dev)[:16]
+    bad = (torch.randperm(m // 4, generator=gen, device=dev)[:16] * 4
+           + torch.arange(16, device=dev) % 4)
     src[bad[:8]] = n + torch.arange(8, dtype=torch.int32, device=dev)
     dst[bad[8:]] = -1 - torch.arange(8, dtype=torch.int32, device=dev)
 
@@ -527,17 +573,15 @@ def edge_reweight_alone(prob, eps: float, seed: int, lane_counts=(1, 8)):
 
     out = {}
     for lanes in lane_counts:
-        lead = () if lanes == 1 else (lanes,)
-        c = g.c * (0.8 + 0.4 * torch.rand(lead + (m,), generator=gen,
-                                          device=dev))
-        v = torch.rand(lead + (n,), generator=gen, device=dev)
+        name = f"edge_reweight {label}B={lanes}"
+        c, v = edge_reweight_inputs(g, lanes, gen)
         r = ops.edge_reweight_r(src, dst, c, v, eps)
         v_pad = torch.cat([v, torch.zeros_like(v[..., :1])], dim=-1)
         want = ref.edge_reweight_ref(in_range(src), in_range(dst), c, v_pad,
                                      eps)
         # bit for bit (tolerance 0 of each entry): the kernel rounds each
         # operation once, in the plain version's order
-        err = check_close(f"edge_reweight B={lanes}", [r], [want], 0.0)
+        err = check_close(name, [r], [want], 0.0)
         del want, v_pad
         # timed on the instance's own indices, the main path's
         args = (g.src, g.dst, c, v, eps)
@@ -546,12 +590,16 @@ def edge_reweight_alone(prob, eps: float, seed: int, lane_counts=(1, 8)):
             err, c.shape, lambda: ops.edge_reweight_r(*args),
             lambda: ref.edge_reweight_ref(*args), 50, 10,
             bound(nbytes(g.src, g.dst, c, v, r), 7 * c.numel()))
+        out[lanes]["plan"] = list(ops._er_plan(m, ops._aligned(g.src, g.dst,
+                                                              c)))
+        log_share(name, out[lanes])
+        device_time(name, out[lanes], lambda: ops.edge_reweight_r(*args), 50)
         del c, v, r, args
     torch.cuda.empty_cache()
     for lanes, r in out.items():
-        log(f"  edge_reweight {r['shape']}: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library null, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+        log(f"  edge_reweight {label}{r['shape']}: kernel {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, library null, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plan {r['plan']}")
     return out
 
 
@@ -1361,7 +1409,8 @@ def main(argv=None) -> int:
     kern["edge_reweight"] = er[8]          # the serving batch's shape
     del prob_coo
     er_frame = edge_reweight_alone(Problem.build(frame, n_blocks=1), cfg.eps,
-                                   args.seed, lane_counts=(8,))
+                                   args.seed, lane_counts=(8,),
+                                   label="frame ")
     report["edge_reweight"]["frame B=8"] = er_frame[8]
     torch.cuda.empty_cache()
 

@@ -1,26 +1,35 @@
-"""Times the batched ELL path's three kernels of one tree of the port, by
-both of ``chip_smoke.py``'s methods, and their wrappers' host time.
+"""Times kernels of one tree of the port, by both of ``chip_smoke.py``'s
+methods, and their wrappers' host time.
 
-    python3 kernel_times.py [--src DIR] [--side 48] [--lanes 4] [--out FILE]
+    python3 kernel_times.py [--src DIR] [--kernels ell|edge_reweight]
+                            [--side N] [--lanes 4] [--out FILE]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed (by
 default this checkout's), so that two commits can be compared on one card
 in one run: unpack the other commit into a directory that git ignores and
-run parent, change, change, parent.  The inputs are those of
-``chip_smoke.py``'s phase 9 (``batched_ell_kernels``), made from ``--seed``
-on the card: B = ``--lanes`` lanes of values over the ELL plan of a
-``--side``³ 26-connected grid, and the lanes' [B·P, bs, bs] block inverses
-(8³-voxel boxes).  Per kernel, three rounds of:
+run parent, change, change, parent.  ``--kernels`` picks the set:
 
-- ``ms``: back-to-back wrapper calls between two CUDA events
+- ``ell`` (the default): the batched ELL path's three kernels on the inputs
+  of ``chip_smoke.py``'s phase 9 (``batched_ell_kernels``), made from
+  ``--seed`` on the card: B = ``--lanes`` lanes of values over the ELL plan
+  of a ``--side``³ 26-connected grid, and the lanes' [B·P, bs, bs] block
+  inverses (8³-voxel boxes);
+- ``edge_reweight``: ``edge_reweight`` on the inputs of phase 7
+  (``edge_reweight_alone``): the COO graph of the ``--side``³ volume (96 by
+  default here) at B = 1 and B = 8, and of the 1024² 4-connected frame at
+  B = 8.
+
+Per call, three rounds of:
+
+- ``ms``: back-to-back calls between two CUDA events
   (``chip_smoke.time_ms``);
 - ``graph_ms``: the same calls captured in a CUDA graph and replayed, the
   launches' device time (``chip_smoke.graph_ms``);
-- ``host_us``: the wrapper's host time per call, the wall time of a loop of
-  calls that never waits on the card (far fewer launches than its queue
-  holds), over their number.
+- ``host_us``: the call's host time, the wall time of a loop of calls that
+  never waits on the card (far fewer launches than its queue holds), over
+  their number.
 
-Prints the card's name and power limit, one line per kernel and, last, one
+Prints the card's name and power limit, one line per call and, last, one
 JSON object with every round; ``--out`` writes the same object to a file.
 Needs one CUDA card and ``nvcc``.
 """
@@ -34,6 +43,10 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+# the side of chip_smoke.py's serving frame (its --frame default)
+FRAME = 1024
+KERNEL_SETS = {"ell": ("ell_spmv", "fused_ell_sweep", "block_diag_matvec"),
+               "edge_reweight": ("edge_reweight",)}
 
 
 def host_us(fn, calls: int) -> float:
@@ -49,7 +62,8 @@ def host_us(fn, calls: int) -> float:
 
 
 def kernel_calls(side: int, lanes: int, seed: int) -> dict:
-    """The wrapper calls to time, by kernel, on phase 9's inputs."""
+    """The wrapper calls to time, by kernel, on phase 9's inputs, with
+    their repetitions."""
     import torch
 
     import chip_smoke as smoke
@@ -79,15 +93,43 @@ def kernel_calls(side: int, lanes: int, seed: int) -> dict:
     p, bs = lanes * bplan.p, bplan.bs
     A = torch.randn((p, bs, bs), generator=gen, device=dev)
     x = torch.randn((p, bs), generator=gen, device=dev)
-    return {"ell_spmv": lambda: ops.ell_spmv(cols, vals, diag, v),
-            "fused_ell_sweep": lambda: ops.fused_ell_sweep(*sweep),
-            "block_diag_matvec": lambda: ops.block_diag_matvec(A, x)}
+    return {"ell_spmv": (lambda: ops.ell_spmv(cols, vals, diag, v), 100),
+            "fused_ell_sweep": (lambda: ops.fused_ell_sweep(*sweep), 50),
+            "block_diag_matvec": (lambda: ops.block_diag_matvec(A, x), 30)}
+
+
+def edge_reweight_calls(side: int, seed: int) -> dict:
+    """The wrapper calls of ``edge_reweight`` on phase 7's inputs, with
+    their repetitions."""
+    import torch
+
+    import chip_smoke as smoke
+    from repro_torch.core import IRLSConfig, Problem
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    eps = IRLSConfig().eps
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    calls = {}
+    for tenant, inst, lane_counts in (
+            ("volume", smoke.segmentation_grid(side, seed), (1, 8)),
+            ("frame", smoke.frame_instance(FRAME, seed + 2), (8,))):
+        g = Problem.build(inst, n_blocks=1).device_graph(torch.float32,
+                                                         device=dev)
+        for lanes in lane_counts:
+            c, v = smoke.edge_reweight_inputs(g, lanes, gen)
+            args = (g.src, g.dst, c, v, eps)
+            calls[f"edge_reweight {tenant} B={lanes}"] = (
+                lambda args=args: ops.edge_reweight_r(*args), 50)
+    return calls
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
-    ap.add_argument("--side", type=int, default=48)
+    ap.add_argument("--kernels", choices=sorted(KERNEL_SETS), default="ell")
+    ap.add_argument("--side", type=int, default=None,
+                    help="grid side (48 for ell, 96 for edge_reweight)")
     ap.add_argument("--lanes", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rounds", type=int, default=3)
@@ -105,26 +147,35 @@ def main(argv=None) -> int:
     import repro_torch
     from repro_torch.kernels import build
 
-    build.build_all(["ell_spmv", "fused_ell_sweep", "block_diag_matvec"])
+    build.build_all(KERNEL_SETS[args.kernels])
     card = smoke.card_line()
     print(card, flush=True)
-    calls = kernel_calls(args.side, args.lanes, args.seed)
-    reps = {"ell_spmv": 100, "fused_ell_sweep": 50, "block_diag_matvec": 30}
+    if args.kernels == "ell":
+        side = args.side or 48
+        calls = kernel_calls(side, args.lanes, args.seed)
+    else:
+        side = args.side or 96
+        calls = edge_reweight_calls(side, args.seed)
     runs = {}
-    for name, fn in calls.items():
+    for name, (fn, reps) in calls.items():
         fn()
         r = runs[name] = {"ms": [], "graph_ms": [], "host_us": []}
         for _ in range(args.rounds):
-            r["ms"].append(smoke.time_ms(fn, reps[name]))
-            r["graph_ms"].append(smoke.graph_ms(fn, reps[name]))
-            r["host_us"].append(host_us(fn, reps[name]))
+            r["ms"].append(smoke.time_ms(fn, reps))
+            r["graph_ms"].append(smoke.graph_ms(fn, reps))
+            r["host_us"].append(host_us(fn, reps))
         med = {key: statistics.median(t) for key, t in r.items()}
         r["median"] = med
         print(f"{name}: {med['ms']:.4f} ms a call back to back, "
               f"{med['graph_ms']:.4f} ms a launch in a CUDA graph, "
               f"{med['host_us']:.1f} us of host time a call", flush=True)
     report = {"src": str(Path(repro_torch.__file__).parent), "card": card,
-              "side": args.side, "lanes": args.lanes, "kernels": runs}
+              "side": side}
+    if args.kernels == "ell":
+        report["lanes"] = args.lanes
+    else:
+        report["frame"] = FRAME
+    report["kernels"] = runs
     if args.out:
         Path(args.out).write_text(json.dumps(report, indent=1))
     print(json.dumps(report))

@@ -38,7 +38,7 @@ _SIGNATURES = {
                             [_P] * 5 + [_F] + [_P] * 4 + [_I] * 5 + [_P]),
     "block_diag_matvec_f32": ("block_diag_matvec", [_P] * 3 + [_I] * 5 + [_P]),
     "edge_reweight_f32": ("edge_reweight",
-                          [_P] * 4 + [_F, _P, _L, _I, _I, _P]),
+                          [_P] * 4 + [_F, _P, _L] + [_I] * 4 + [_P]),
     "flash_fwd_bf16": ("flash_fwd", [_P] * 5 + [_I] * 6
                        + [ctypes.POINTER(_L), _I, _F, _P]),
     "flash_fwd_f32": ("flash_fwd", [_P] * 5 + [_I] * 6
@@ -199,6 +199,35 @@ def _bdm_plan(p: int, bs: int, aligned: bool = True) -> BdmPlan:
     return BdmPlan(g_log2, nch, grid)
 
 
+# edge_reweight (csrc/edge_reweight.cu: BLOCK, EDGES): threads per block,
+# edges per thread of the vector variant; the scalar variant's grid-stride
+# loop runs on at most 64 blocks an SM of the card's 132
+_ER_BLOCK, _ER_EDGES = 256, 4
+_ER_SCALAR_MAX_GRID = 132 * 64
+
+
+class ErPlan(NamedTuple):
+    """Launch geometry of ``edge_reweight``: ``grid`` blocks of
+    ``_ER_BLOCK`` threads in a grid-stride loop; thread t of block b takes
+    work items b·_ER_BLOCK + t, + grid·_ER_BLOCK, ..., each of ``edges``
+    consecutive edges: ``_ER_EDGES`` for the vector variant, 1 for the
+    scalar one."""
+    edges: int
+    grid: int
+
+
+def _er_plan(m: int, aligned: bool = True) -> ErPlan:
+    """The variant and grid of ``edge_reweight`` for m ≥ 1 edges, any
+    number of lanes: the vector variant where m % 4 == 0 and src, dst and c
+    are ``aligned`` to 16 bytes (every lane's row then is; the wrapper's
+    freshly allocated r always is), on a one-shot grid (one work item a
+    thread); else the scalar one on at most ``_ER_SCALAR_MAX_GRID``
+    blocks."""
+    if m % _ER_EDGES or not aligned:
+        return ErPlan(1, min(-(-m // _ER_BLOCK), _ER_SCALAR_MAX_GRID))
+    return ErPlan(_ER_EDGES, -(-(m // _ER_EDGES) // _ER_BLOCK))
+
+
 def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, diag: torch.Tensor,
              v: torch.Tensor) -> torch.Tensor:
     """ELLPACK SpMV  y = diag⊙v + Σ_lane vals⊙v[cols]  (float32 or bfloat16;
@@ -289,7 +318,9 @@ def edge_reweight_r(src: torch.Tensor, dst: torch.Tensor, c: torch.Tensor,
     """Per-edge reweighted conductances r_e (COO layout), the ``edge_r`` of
     ``core.laplacian.reweight`` under ``use_pallas``.  Batched: ``c`` (B, m)
     and ``v`` (B, nv) over one shared ``src``/``dst`` (m,), int32 on CUDA.
-    An index outside [0, nv) gathers 0.  ε² is squared in float32."""
+    An index outside [0, nv) gathers 0.  ε² is squared in float32.  The
+    kernel's variant and grid come from ``_er_plan``, by shape and
+    alignment."""
     if _on_cpu(src, dst, c, v):
         return ref.edge_reweight_ref(src, dst, c, v, eps)
     m = src.shape[0]
@@ -303,8 +334,12 @@ def edge_reweight_r(src: torch.Tensor, dst: torch.Tensor, c: torch.Tensor,
              f"c {tuple(c.shape)}, v {tuple(v.shape)}")
     _contiguous(src=src, dst=dst, c=c, v=v)
     r = torch.empty(c.shape, dtype=v.dtype, device=v.device)
+    if r.numel() == 0:
+        return r
+    plan = _er_plan(m, _aligned(src, dst, c))
     _launch("edge_reweight_f32", v.device, src.data_ptr(), dst.data_ptr(),
-            c.data_ptr(), v.data_ptr(), eps_sq(eps), r.data_ptr(), m, nv, b)
+            c.data_ptr(), v.data_ptr(), eps_sq(eps), r.data_ptr(), m, nv, b,
+            *plan)
     _count("edge_reweight")
     return r
 

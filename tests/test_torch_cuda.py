@@ -103,19 +103,31 @@ def _zero_filled(idx, nv):
 
 
 # bit for bit: the kernel rounds each operation once, in the plain
-# version's order (correctly rounded square root and division)
-@pytest.mark.parametrize("m,n", [(100, 64), (5000, 300), (12288, 1024)])
-@pytest.mark.parametrize("lanes", [None, 3])
+# version's order (correctly rounded square root and division).  m % 4 == 0
+# takes the vector variant (groups of 4 edges), any other m the scalar one;
+# the lane counts run the vector variant's prefetch of the next lane's
+# weights with and without a next lane
+@pytest.mark.parametrize("m,n", [(100, 64), (5000, 300), (12288, 1024),
+                                 (1001, 64), (4, 8), (3, 8), (0, 8)])
+@pytest.mark.parametrize("lanes", [None, 3, 1, 2, 5, 8, 16])
 @pytest.mark.parametrize("eps", [1e-6, 1e-2])
 def test_edge_reweight_kernel(cuda, m, n, lanes, eps):
     """One instance and a batch of lanes over shared src/dst; a few indices
-    out of range gather 0, as the TPU kernel's fill_value=0 does."""
+    out of range gather 0, as the TPU kernel's fill_value=0 does.  Where
+    m ≥ 32 they sit at every place of the vector variant's groups of 4
+    edges, in src and in dst, each in a group of its own; at m = 4 one
+    sits at each place of the one group."""
     rng = np.random.default_rng(m + n)
     b = 1 if lanes is None else lanes
     src = rng.integers(0, n, m).astype(np.int32)
     dst = rng.integers(0, n, m).astype(np.int32)
-    src[:3] = [n, n + 7, -1]
-    dst[3:5] = [n + 1, -5]
+    k = min(m, 8)
+    if m // 4 >= k:
+        pos = rng.choice(m // 4, k, replace=False) * 4 + np.arange(k) % 4
+    else:
+        pos = rng.choice(m, k, replace=False)
+    src[pos[:k // 2]] = [n, n + 7, -1, 2 ** 31 - 1][:k // 2]
+    dst[pos[k // 2:]] = [n + 1, -5, -2 ** 31, n][:k - k // 2]
     c = rng.uniform(0.1, 3.0, (b, m)).astype(np.float32)
     v = rng.uniform(0, 1, (b, n)).astype(np.float32)
     if lanes is None:
@@ -124,12 +136,38 @@ def test_edge_reweight_kernel(cuda, m, n, lanes, eps):
     before = ops.launches["edge_reweight"]
     r = ops.edge_reweight_r(s, d, cc, vv, eps)
     torch.cuda.synchronize()
-    assert ops.launches["edge_reweight"] == before + 1
+    assert ops.launches["edge_reweight"] == before + (m > 0)
     assert r.shape == cc.shape
     v_pad = torch.cat([vv, torch.zeros_like(vv[..., :1])], dim=-1)
     want = ref.edge_reweight_ref(_zero_filled(s, n), _zero_filled(d, n), cc,
                                  v_pad, eps)
     np.testing.assert_array_equal(r.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.parametrize("off", [1, 2, 3])
+def test_edge_reweight_kernel_off_16_byte_boundary(cuda, off):
+    """src, dst and c as contiguous 1-D slices that start ``off`` entries
+    into their buffers (m % 4 == 0, B = 1): the scalar variant, bit for bit;
+    the same slices at offset 0 take the vector variant, with equal r."""
+    m, n = 4096, 500
+    rng = np.random.default_rng(off)
+    src = rng.integers(0, n, m + 4).astype(np.int32)
+    dst = rng.integers(0, n, m + 4).astype(np.int32)
+    src[off + 9], dst[off + 10] = n + 3, -1
+    c = rng.uniform(0.1, 3.0, m + 4).astype(np.float32)
+    v = rng.uniform(0, 1, n).astype(np.float32)
+    s, d, cc, vv = _dev(cuda, src, dst, c, v)
+    s1, d1, c1 = s[off:off + m], d[off:off + m], cc[off:off + m]
+    assert all(t.is_contiguous() for t in (s1, d1, c1))
+    assert ops._er_plan(m, ops._aligned(s1, d1, c1)).edges == 1
+    r = ops.edge_reweight_r(s1, d1, c1, vv, 1e-6)
+    v_pad = torch.cat([vv, torch.zeros_like(vv[:1])])
+    want = ref.edge_reweight_ref(_zero_filled(s1, n), _zero_filled(d1, n), c1,
+                                 v_pad, 1e-6)
+    np.testing.assert_array_equal(r.cpu().numpy(), want.cpu().numpy())
+    s0, d0, c0 = (t.clone() for t in (s1, d1, c1))
+    assert ops._er_plan(m, ops._aligned(s0, d0, c0)).edges == 4
+    assert torch.equal(ops.edge_reweight_r(s0, d0, c0, vv, 1e-6), r)
 
 
 # the batched ELL kernels: B lanes of values over one shared cols; the

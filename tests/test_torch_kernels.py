@@ -483,3 +483,63 @@ def test_ell_sweep_variant_needs_16_byte_boundaries():
         shifted = buf[off:off + 4 * 32].view(4, 32)
         assert shifted.is_contiguous()
         assert ops._vector_group_log2(32, aligned, shifted) == -1
+
+
+# -- edge_reweight's variants and grid (ops._er_plan) ------------------------
+
+def test_edge_reweight_plan_matches_kernel_source():
+    """The wrapper's threads per block and edges per vector work item are
+    the kernel's own."""
+    k = _kernel_constants("edge_reweight.cu")
+    assert (k["BLOCK"], k["EDGES"]) == (ops._ER_BLOCK, ops._ER_EDGES)
+
+
+@pytest.mark.parametrize("m,aligned,vector", [
+    (11_254_460, True, True), (2_095_104, True, True), (4096, True, True),
+    (4, True, True), (4097, True, False), (4098, True, False),
+    (4099, True, False), (3, True, False), (1, True, False),
+    (11_254_460, False, False), (4096, False, False)])
+def test_edge_reweight_plan_by_shape(m, aligned, vector):
+    """The vector variant (4 edges a thread) where m % 4 == 0 and the
+    tensors are on 16-byte boundaries, the scalar one (1 edge) otherwise."""
+    plan = ops._er_plan(m, aligned)
+    assert plan.edges == (ops._ER_EDGES if vector else 1)
+    assert plan.grid >= 1
+
+
+def test_edge_reweight_plan_needs_16_byte_boundaries():
+    """A 1-D slice at an offset of 1, 2 or 3 entries is off the 16-byte
+    boundary the vector variant's loads need; at 4 it is on it."""
+    buf = torch.zeros(4096 + 8, dtype=torch.int32)
+    for off in (1, 2, 3, 4):
+        t = buf[off:off + 4096]
+        assert t.is_contiguous()
+        aligned = ops._aligned(buf[:4096], t)
+        assert aligned == (off % 4 == 0)
+        assert ops._er_plan(4096, aligned).edges == (4 if aligned else 1)
+
+
+@pytest.mark.parametrize("m,cap", [
+    (4096, None), (4100, None), (1, None), (4, None), (1001, None),
+    (70_000, None), (12_289, None), (9_000, 3), (9_001, 2)])
+def test_edge_reweight_plan_covers_every_edge_once(m, cap, monkeypatch):
+    """Walked as the kernel walks it (thread t of block b takes work items
+    b·BLOCK + t, + grid·BLOCK, ..., each of ``edges`` edges), the plan
+    covers every edge exactly once; the vector variant's grid is one-shot
+    (no thread takes two items, no block idles), the scalar one's at most
+    its cap."""
+    if cap is not None:
+        monkeypatch.setattr(ops, "_ER_SCALAR_MAX_GRID", cap)
+    plan = ops._er_plan(m, True)
+    items = m // plan.edges
+    assert items * plan.edges == m
+    stride = plan.grid * ops._ER_BLOCK
+    seen = np.zeros(m, dtype=np.int64)
+    for t in range(min(stride, items)):
+        for q in range(t, items, stride):
+            seen[q * plan.edges:(q + 1) * plan.edges] += 1
+    assert (seen == 1).all()
+    if plan.edges > 1:
+        assert stride >= items > (plan.grid - 1) * ops._ER_BLOCK
+    else:
+        assert plan.grid <= ops._ER_SCALAR_MAX_GRID
