@@ -4,7 +4,7 @@
 shapes), as in the JAX package's ``repro/configs/registry.py``; ``--arch
 <id>`` in the port's launchers resolves through this table.  The GNN, recsys
 and solver entries of the JAX registry are not ported yet: ``get`` names
-them and the ROADMAP item.
+them and the ROADMAP item by its title.
 """
 from __future__ import annotations
 
@@ -40,7 +40,8 @@ NOT_PORTED = {"gcn-cora": "gnn", "schnet": "gnn", "dimenet": "gnn",
 def get(arch_id: str) -> ArchEntry:
     if arch_id in NOT_PORTED:
         raise KeyError(f"arch {arch_id!r} ({NOT_PORTED[arch_id]} family) is "
-                       f"not ported yet: ROADMAP.md queue 1, item 13")
+                       f"not ported yet: ROADMAP.md queue 1, \"The rest of "
+                       f"the model stack\"")
     if arch_id not in ARCHS:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCHS)}")
     return ARCHS[arch_id]

@@ -6,12 +6,15 @@ Public API:
     sweep_cut, two_level         — rounding (step 7; rounding.REGISTRY)
     max_flow, min_cut_value      — exact serial oracle (host Dinic)
     pirmcut                      — Algorithm 1 end to end
+    cheeger_lambda2, phi_of_cut  — Thm 2.7 diagnostic
 """
 from .incidence import DeviceGraph, device_graph_from_instance
-from .irls import IRLSConfig, IRLSDiagnostics, solve
+from .irls import IRLSConfig, IRLSDiagnostics, solve, solve_scanned
 from .maxflow import MaxFlowResult, max_flow, min_cut_indicator, min_cut_value
 from .rounding import RoundingResult, round_voltages, sweep_cut, two_level
-from .session import MinCutSession, Problem, SolveResult, Weights, as_weights
+from .session import (MinCutSession, Problem, SolveResult, Weights,
+                      as_weights, rebind_terminals, topology_fingerprint)
+from .cheeger import CheegerEstimate, cheeger_lambda2, phi_of_cut
 
 
 def pirmcut(instance, cfg: IRLSConfig = IRLSConfig(), rounding: str = "two_level",

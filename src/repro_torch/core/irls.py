@@ -337,12 +337,15 @@ def make_scanned_program(src, dst, cfg: IRLSConfig,
       while the other lanes go on.  All T iterations run, so ``rels`` and
       ``iters`` are full (B, T) arrays, as under ``jax.vmap``.
 
-    ``ext_stage`` (the ELL weight table staged by the caller, the delta
-    staging path) is not ported yet and raises."""
-    if ext_stage:
-        raise NotImplementedError(
-            "ext_stage (delta staging of the ELL weight table) is not "
-            "ported yet: ROADMAP queue 1, delta staging")
+    ``ext_stage=True`` (fused ELL configs only) moves the once-per-solve
+    slot-major weight staging out of the program: the caller passes the
+    staged table right after the weights, ``run(c, c_s, c_t, c_ell[, v0])``
+    with ``c_ell`` (n, k) or (B, n, k).  This is the delta-staging path:
+    under sparse weight drift the session patches the previous staging
+    (``lap.ell_edge_weights_delta``) instead of restaging all m edges."""
+    if ext_stage and not _fused(cfg, ell_plan):
+        raise ValueError("ext_stage requires the fused ELL path "
+                         "(cfg.layout='ell' + fuse_edge_sweep + an ELL plan)")
     adaptive = sched.is_adaptive(cfg)
     tight = cfg.pcg_tight_tol
     eps_sched = [float(e) for e in eps_schedule_array(cfg)]
@@ -383,11 +386,12 @@ def make_scanned_program(src, dst, cfg: IRLSConfig,
                                res.iters, tight)
         return v_new, st_new, res.rel_res, spent
 
-    def _run(c, c_s, c_t, v_warm):
+    def _run(c, c_s, c_t, v_warm, c_ell):
         g = DeviceGraph(src=src, dst=dst, c=c, c_s=c_s, c_t=c_t)
-        # the slot-major ELL weights, staged ONCE per solve
-        c_ell = (lap.ell_edge_weights(ell_plan, c) if _fused(cfg, ell_plan)
-                 else None)
+        # the slot-major ELL weights, staged ONCE per solve (unless the
+        # caller staged them: the delta path)
+        if c_ell is None and _fused(cfg, ell_plan):
+            c_ell = lap.ell_edge_weights(ell_plan, c)
         v = v_warm.to(c.dtype) if warm else initial(g)
         rels, iters = [], []
         if not adaptive:
@@ -406,12 +410,18 @@ def make_scanned_program(src, dst, cfg: IRLSConfig,
             iters.append(spent)
         return v, torch.stack(rels, dim=-1), torch.stack(iters, dim=-1)
 
-    if warm:
+    if ext_stage and warm:
+        def run(c, c_s, c_t, c_ell, v0):
+            return _run(c, c_s, c_t, v0, c_ell)
+    elif ext_stage:
+        def run(c, c_s, c_t, c_ell):
+            return _run(c, c_s, c_t, None, c_ell)
+    elif warm:
         def run(c, c_s, c_t, v0):
-            return _run(c, c_s, c_t, v0)
+            return _run(c, c_s, c_t, v0, None)
     else:
         def run(c, c_s, c_t):
-            return _run(c, c_s, c_t, None)
+            return _run(c, c_s, c_t, None, None)
     return run
 
 

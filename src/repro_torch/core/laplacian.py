@@ -211,6 +211,52 @@ def ell_edge_weights(plan: EllPlan, c: torch.Tensor) -> torch.Tensor:
     return ce
 
 
+class EllDeltaMap(NamedTuple):
+    """Edge-major view of the TWO ELL slots of every undirected edge.
+
+    ``ell_edge_weights`` scatters slot-major (all 2m directed copies); a
+    drift step that touches d ≪ m edges only needs the 2d slots of the
+    changed edges.  ``rows[e]``/``lanes[e]`` are those two (row, lane)
+    destinations of edge ``e``, on the plan's device.  Built once per
+    topology next to the plan."""
+
+    rows: torch.Tensor   # int64[m, 2]
+    lanes: torch.Tensor  # int64[m, 2]
+
+
+def build_ell_delta_map(plan: EllPlan) -> EllDeltaMap:
+    """The per-edge slot map of ``plan``: a stable argsort of
+    ``plan.edge_id`` (on the plan's device) groups each edge's two slots,
+    in plan order."""
+    m = plan.edge_id.shape[0] // 2
+    order = torch.sort(plan.edge_id, stable=True).indices
+    return EllDeltaMap(rows=plan.slot_rows[order].reshape(m, 2),
+                       lanes=plan.slot_cols[order].reshape(m, 2))
+
+
+def ell_edge_weights_delta(dmap: EllDeltaMap, c_ell_prev: torch.Tensor,
+                           c: np.ndarray, changed) -> torch.Tensor:
+    """Delta mode of ``ell_edge_weights``: a copy of the previously staged
+    (n, k) table with only the slots of the ``changed`` edge ids rewritten
+    from ``c`` (host array of all m edge weights).
+
+    Bit-equal to a full restage: the untouched slots ARE the previous
+    staging, and the changed slots receive the values ``ell_edge_weights``
+    writes, rounded once to the table's dtype.  ``changed`` is a host int
+    array (the diff is data-dependent); the previous table is not
+    modified, so a solve still reading it is unaffected."""
+    changed = np.asarray(changed, dtype=np.int64)
+    if changed.size == 0:
+        return c_ell_prev
+    dev = c_ell_prev.device
+    idx = torch.as_tensor(changed, device=dev)
+    vals = torch.as_tensor(np.asarray(c)[changed],
+                           device=dev).to(c_ell_prev.dtype)
+    out = c_ell_prev.clone()
+    out[dmap.rows[idx], dmap.lanes[idx]] = vals[:, None].expand(-1, 2)
+    return out
+
+
 def fused_ell_sweep(cols: torch.Tensor, c_ell: torch.Tensor,
                     c_s: torch.Tensor, c_t: torch.Tensor, v: torch.Tensor,
                     eps):

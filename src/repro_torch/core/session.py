@@ -20,20 +20,24 @@ Two backends run on the session's device:
               iterations on the fixed or masked         B lanes in one
               adaptive schedule                         program)
 
-The JAX package's ``"sharded"`` backend, presolve and delta staging are
-later slices (ROADMAP queue 1) and raise ``NotImplementedError`` here.
+Both run presolve (``presolve=True``: exact kernelization, the kernel
+solved on the same backend and device, the result lifted back with a cut
+certificate) and delta staging (``delta_key=``: a keyed weight sequence
+restages only the changed slots of the fused-ELL weight table).  The JAX
+package's ``"sharded"`` backend is not ported yet (ROADMAP queue 1,
+``distributed/``) and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import threading
 import time
+from collections import OrderedDict
 from typing import Dict, List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
-from scipy.sparse import coo_matrix
-from scipy.sparse.csgraph import connected_components
 
 from . import laplacian as lap
 from . import precond as pc
@@ -63,6 +67,11 @@ class Weights(NamedTuple):
 
 
 WeightsLike = Union["Weights", STInstance, tuple]
+
+# delta staging engages only while the diff stays this sparse; beyond it a
+# full restage is cheaper (one dense scatter against a large gather/scatter
+# pair)
+DELTA_MAX_FRAC = 0.25
 
 
 def as_weights(w: WeightsLike) -> Weights:
@@ -232,15 +241,54 @@ class Problem:
         return check_weights_for(self.instance, weights)
 
     def component_labels(self) -> np.ndarray:
-        """Connected-component labels of the NON-TERMINAL graph (cached)."""
+        """Connected-component labels of the NON-TERMINAL graph (cached):
+        two nodes share a label iff a path of graph edges joins them, each
+        component labelled by its smallest node id.  Used by the solve
+        guard against s-t-disconnected instances."""
         with self._plan_lock:
             if self._components is None:
+                from ..presolve.rules import _connected_components
                 g = self.instance.graph
-                adj = coo_matrix((np.ones(g.m, dtype=np.int8),
-                                  (np.asarray(g.src), np.asarray(g.dst))),
-                                 shape=(g.n, g.n))
-                _, self._components = connected_components(adj, directed=False)
+                self._components = _connected_components(
+                    g.n, np.asarray(g.src, dtype=np.int64),
+                    np.asarray(g.dst, dtype=np.int64))
             return self._components
+
+    # -- contraction-derived problems ------------------------------------------
+    def derive(self, vertex_map: np.ndarray, n_blocks: int = 1,
+               seed: int = 0):
+        """Contract this topology by ``vertex_map`` (int[n] -> [0, k)) and
+        build a Problem on the contracted graph.
+
+        Returns ``(problem, derived)``; ``derived`` (a
+        ``presolve.DerivedInstance``) carries the vertex/edge maps:
+        ``derived.project_weights(c)`` pushes same-topology edge weights
+        onto the contracted graph and ``derived.lift_partition(side)``
+        pulls a contracted side assignment back to the original vertices."""
+        from ..presolve.contract import derive_instance
+        d = derive_instance(self.instance, vertex_map)
+        return Problem.build(d.instance, n_blocks=n_blocks, seed=seed), d
+
+    def contract(self, s_nodes, t_nodes, n_blocks: int = 1, seed: int = 0,
+                 strength: Optional[float] = None):
+        """Merge ``s_nodes`` into one supernode and ``t_nodes`` into
+        another (disjoint node sets or single ints) and pin the terminals
+        to the two supernodes.
+
+        Returns ``(problem, derived, weights)``: the contracted Problem,
+        the projection/lift maps, and one-hot terminal ``Weights`` on the
+        contracted instance (``rebind_terminals`` semantics)."""
+        from ..presolve.contract import contraction_map, derive_instance
+        s_arr = np.atleast_1d(np.asarray(s_nodes, dtype=np.int64))
+        t_arr = np.atleast_1d(np.asarray(t_nodes, dtype=np.int64))
+        if np.intersect1d(s_arr, t_arr).size:
+            raise ValueError("s_nodes and t_nodes must be disjoint")
+        vm = contraction_map(self.instance.n, [s_arr, t_arr])
+        d = derive_instance(self.instance, vm)
+        prob = Problem.build(d.instance, n_blocks=n_blocks, seed=seed)
+        w = rebind_terminals(d.instance, int(vm[s_arr[0]]), int(vm[t_arr[0]]),
+                             strength=strength)
+        return prob, d, w
 
     # -- cached plans ---------------------------------------------------------
     def _cached(self, key: tuple, build):
@@ -281,6 +329,15 @@ class Problem:
         return self._cached(("ell", str(torch.device(device))),
                             lambda: lap.build_ell_plan(g.src, g.dst, g.n,
                                                        device=device))
+
+    def ell_delta_map(self, device="cuda") -> lap.EllDeltaMap:
+        """Per-edge (row, lane) slot pairs of the ELL plan on ``device``:
+        the scatter targets of delta staging
+        (``lap.ell_edge_weights_delta``).  Topology-level like the plan;
+        built once per device, lazily."""
+        return self._cached(("ell_delta", str(torch.device(device))),
+                            lambda: lap.build_ell_delta_map(
+                                self.ell_plan(device)))
 
     def instance_with(self, weights: Optional[WeightsLike]) -> STInstance:
         """Original-order instance carrying ``weights`` (for rounding);
@@ -329,7 +386,7 @@ class MinCutSession:
     lock per key."""
 
     BACKENDS = ("host", "scanned")
-    _LATER = {"sharded": "ROADMAP queue 1, item 12 (distributed/)"}
+    _LATER = {"sharded": "ROADMAP queue 1, distributed/"}
 
     def __init__(self, problem: Union[Problem, STInstance],
                  cfg: IRLSConfig = IRLSConfig(), backend: str = "host",
@@ -343,8 +400,25 @@ class MinCutSession:
         self.backend = backend
         self.device = torch.device(device)
         self._steppers: Dict[tuple, object] = {}
+        # _cache_lock guards the lock table and the LRUs below
         self._cache_lock = threading.Lock()
         self._compile_locks: Dict[tuple, threading.Lock] = {}
+        # presolve state: kernels keyed on a weight-content hash (the rules
+        # are weight-dependent), kernel SESSIONS keyed on the kernel's
+        # topology fingerprint, so weight vectors that reduce to the same
+        # kernel topology share its partition, plans and drivers
+        self._kernels: "OrderedDict[str, object]" = OrderedDict()
+        self._kernel_max = 16
+        self._kernel_sessions: Dict[tuple, MinCutSession] = {}
+        # drift-aware kernel reuse: the latest (weights, kernel) per delta
+        # key, so a sparse weight change revalidates the reduction journal
+        # and patches the kernel weights instead of re-running the fixpoint
+        self._kernel_recent: "OrderedDict[str, tuple]" = OrderedDict()
+        self._kernel_outcomes = {"reuse": 0, "patch": 0, "rebuild": 0}
+        # delta staging: per key the previous weights and staged ELL table,
+        # so a solve that drifts few edges rewrites only their slots
+        self._delta: "OrderedDict[str, dict]" = OrderedDict()
+        self._delta_max = 64
         # per-session fold of every SolveResult.telemetry (obs.telemetry)
         self.telemetry = TelemetryAggregator()
 
@@ -356,16 +430,6 @@ class MinCutSession:
         if backend not in self.BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; "
                              f"known: {self.BACKENDS}")
-
-    @staticmethod
-    def _check_delta_key(cfg: IRLSConfig) -> None:
-        """A delta key changes nothing off the fused-ELL path (the JAX
-        package only records the weights there); on it, it would restage
-        the ELL weight table in place, which is not ported yet."""
-        if cfg.layout == "ell" and cfg.fuse_edge_sweep:
-            raise NotImplementedError(
-                "delta_key staging of the fused-ELL weight table is not "
-                "ported yet: ROADMAP queue 1, delta staging")
 
     def solve(self, weights: Optional[WeightsLike] = None,
               warm_from: Optional[Union[SolveResult, np.ndarray]] = None,
@@ -383,20 +447,36 @@ class MinCutSession:
                     to continue from.
         rounding  — name in ``rounding.REGISTRY`` ("two_level", "sweep"),
                     or None to skip rounding.
-        delta_key — identity of a weight sequence: accepted and without
-                    effect off the fused-ELL path; on it, not ported yet.
+        presolve  — kernelize first (``presolve``): exact s,t-safe
+                    reductions shrink the instance, the kernel is solved on
+                    the requested backend, and voltages/partition/cut are
+                    lifted back to the original n with an exact cut-value
+                    certificate.  Kernels and kernel sessions are cached on
+                    this session.
+        delta_key — identity of a weight SEQUENCE (e.g. a serving tenant):
+                    the session remembers the previous weights under this
+                    key, diffs the new ones against them, and (a) restages
+                    only the changed ELL slots on the fused-ELL path and
+                    (b) revalidates + patches the cached presolve kernel
+                    instead of re-kernelizing.  Results are bit-equal to
+                    the path without a key.
         """
         backend = backend or self.backend
         cfg = cfg or self.cfg
         self._check_backend(backend)
         if presolve:
-            raise NotImplementedError(
-                "presolve is not ported yet: ROADMAP queue 1, item 8")
-        if delta_key is not None:
-            self._check_delta_key(cfg)
+            return self._solve_presolve(weights, warm_from, rounding,
+                                        backend, cfg, delta_key=delta_key)
         trivial = self._check_connectivity(weights, rounding, backend)
         if trivial is not None:
             return trivial
+        c_ell = delta_tel = None
+        if delta_key is not None:
+            w_chk = (self.problem.check_weights(weights)
+                     if weights is not None
+                     else as_weights(self.problem.instance))
+            c_ell, delta_tel = self._stage_with_delta(w_chk, cfg, backend,
+                                                      delta_key)
         timings: Dict[str, float] = {}
         diag = rels = pcg_iters = None
         get_registry().counter(f"session_solves_{backend}_total").inc()
@@ -406,10 +486,11 @@ class MinCutSession:
             with trace.span("session.irls", backend=backend):
                 if backend == "host":
                     v, diag = self._solve_host(cfg, weights, warm_from,
-                                               collect_voltages, timings)
+                                               collect_voltages, timings,
+                                               c_ell=c_ell)
                 else:
                     v, rels, pcg_iters = self._solve_scanned(
-                        cfg, weights, timings, warm_from)
+                        cfg, weights, timings, warm_from, c_ell=c_ell)
             timings["irls"] = (time.perf_counter() - t0
                                - timings.get("setup", 0.0))
             # a single solve is its own batch: the solver wall a caller
@@ -429,6 +510,8 @@ class MinCutSession:
             self.problem.instance.graph.m, timings, pcg_iters=pcg_iters,
             residuals=rels, diagnostics=diag,
             warm_start=warm_from is not None)
+        if delta_tel is not None:
+            tel["delta"] = delta_tel
         self.telemetry.add(tel)
         return SolveResult(voltages=v, cut=cut, diagnostics=diag,
                            residuals=rels, timings=timings, backend=backend,
@@ -453,9 +536,16 @@ class MinCutSession:
         SolveResult / original-order voltage array per entry: the whole
         batch runs the warm-started program.  Entries whose terminals lie
         in different components resolve to the trivial 0-cut and drop out
-        of the batch.  ``delta_keys`` — one weight-sequence identity per
-        entry: accepted and without effect off the fused-ELL path; on it,
-        not ported yet.  ``presolve`` is not ported yet."""
+        of the batch.
+
+        ``presolve`` kernelizes every entry, groups entries whose kernels
+        share a topology, batches each group and lifts the results back;
+        it runs cold (incompatible with ``warm_from``).  ``delta_keys`` —
+        one weight-sequence identity per entry (None opts an entry out):
+        each entry stages through the per-key cache of
+        ``solve(delta_key=...)``, so a drifting tenant's ELL table is
+        patched instead of restaged (fused-ELL configs); under ``presolve``
+        the keys drive kernel revalidation per entry instead."""
         ws = [self.problem.check_weights(w) for w in weights_batch]
         if not ws:
             # empty batch: nothing to stack, nothing to build
@@ -465,10 +555,13 @@ class MinCutSession:
             raise ValueError(f"delta_keys has {len(delta_keys)} entries for "
                              f"a batch of {len(ws)}")
         if presolve:
-            raise NotImplementedError(
-                "presolve is not ported yet: ROADMAP queue 1, item 8")
-        if delta_keys is not None and any(k is not None for k in delta_keys):
-            self._check_delta_key(cfg)
+            if warm_from is not None:
+                raise ValueError("presolve batches run cold (the kernel "
+                                 "node set depends on the weights, so a "
+                                 "previous voltage vector has no stable "
+                                 "projection)")
+            return self._solve_batch_presolve(ws, rounding, cfg,
+                                              delta_keys=delta_keys)
         prob = self.problem
         dtype = torch_dtype(cfg)
         warm = warm_from is not None
@@ -492,17 +585,37 @@ class MinCutSession:
                 raise ValueError(f"pad_to={pad_to} is smaller than the batch "
                                  f"({n_real})")
             pad = pad_to - n_real
+        ext = (delta_keys is not None and cfg.layout == "ell"
+               and cfg.fuse_edge_sweep)
+        delta_infos: Optional[List[Optional[dict]]] = None
         get_registry().counter("session_solves_scanned_total").inc(n_real)
         t0 = time.perf_counter()
         with trace.span("session.solve_batch", size=n_real,
                         pad_to=pad_to or n_real, warm=warm):
-            run = self._get_scanned(cfg, dtype, warm)
+            run = self._get_scanned(cfg, dtype, warm, ext)
             ws_run = ws_live + [ws_live[-1]] * pad
             C = _lanes_to([w.c for w in ws_run], dtype, self.device)
             CS = _lanes_to([prob.to_reordered(w.c_s) for w in ws_run], dtype,
                            self.device)
             CT = _lanes_to([prob.to_reordered(w.c_t) for w in ws_run], dtype,
                            self.device)
+            args = [C, CS, CT]
+            if ext:
+                # one staged table per live lane, padded with the last one
+                staged, delta_infos = [], []
+                for j, i in enumerate(live):
+                    k = delta_keys[i]
+                    if k is None:
+                        staged.append(lap.ell_edge_weights(
+                            prob.ell_plan(self.device), C[j]))
+                        delta_infos.append(None)
+                    else:
+                        ce, inf = self._stage_with_delta(ws_live[j], cfg,
+                                                         "scanned", k)
+                        staged.append(ce)
+                        delta_infos.append(inf)
+                args.append(torch.stack(staged + [staged[-1]] * pad))
+                del staged
             with trace.span("session.irls", backend="scanned",
                             batch=len(ws_run)):
                 if warm:
@@ -510,12 +623,11 @@ class MinCutSession:
                                      if isinstance(v, SolveResult) else v)
                           for v in warm_from]
                     vs_run = [vs[i] for i in live] + [vs[live[-1]]] * pad
-                    V0 = _lanes_to([prob.to_reordered(v) for v in vs_run],
-                                   dtype, self.device)
-                    V, RELS, ITERS = run(C, CS, CT, V0)
-                else:
-                    V, RELS, ITERS = run(C, CS, CT)
-                del C, CS, CT
+                    args.append(_lanes_to([prob.to_reordered(v)
+                                           for v in vs_run],
+                                          dtype, self.device))
+                V, RELS, ITERS = run(*args)
+                del C, CS, CT, args
                 V = V.cpu().numpy()
                 RELS = RELS.cpu().numpy()
                 ITERS = ITERS.cpu().numpy()
@@ -544,6 +656,8 @@ class MinCutSession:
                     cfg, "scanned", prob.instance.n, prob.instance.graph.m,
                     timings, pcg_iters=ITERS[j], residuals=RELS[j],
                     warm_start=warm)
+                if delta_infos is not None and delta_infos[j] is not None:
+                    tel["delta"] = delta_infos[j]
                 self.telemetry.add(tel)
                 out[i] = SolveResult(
                     voltages=v, cut=cut, diagnostics=None,
@@ -553,8 +667,12 @@ class MinCutSession:
 
     def telemetry_snapshot(self) -> Dict[str, object]:
         """Aggregated telemetry over every solve this session ran (PCG
-        spend distribution, phase walls, early-exit/warm-start rates)."""
-        return self.telemetry.snapshot()
+        spend distribution, phase walls, early-exit/warm-start rates,
+        kernel reductions and presolve kernel outcomes)."""
+        snap = self.telemetry.snapshot()
+        if sum(self._kernel_outcomes.values()):
+            snap["kernel_outcomes"] = dict(self._kernel_outcomes)
+        return snap
 
     def _check_connectivity(self, weights, rounding, backend):
         """Guard against instances whose reduced Laplacian is singular.
@@ -562,7 +680,8 @@ class MinCutSession:
         s and t in different components → the min cut is trivially 0;
         returns that SolveResult instead of letting PCG produce NaNs.
         Components touching NEITHER terminal are singular blocks too; those
-        are rejected."""
+        are rejected with a pointer at ``presolve=True``, which merges them
+        away exactly."""
         w = (self.problem.check_weights(weights) if weights is not None
              else as_weights(self.problem.instance))
         comp = self.problem.component_labels()
@@ -575,8 +694,9 @@ class MinCutSession:
                 raise ValueError(
                     f"{stray.size} connected component(s) touch neither "
                     f"terminal: their Laplacian blocks are singular and "
-                    f"PCG would return garbage voltages there; restrict "
-                    f"the graph to the components that touch a terminal")
+                    f"PCG would return garbage voltages there.  Solve with "
+                    f"presolve=True (kernelization merges terminal-free "
+                    f"components away exactly) or restrict the graph")
             return None
         # trivial 0-cut: every component holding an s-terminal goes source
         # side; no terminal edge crosses (no component holds both kinds)
@@ -596,6 +716,225 @@ class MinCutSession:
                            timings=timings, backend=backend, pcg_iters=None,
                            telemetry=tel)
 
+    # -- presolve (kernelization) ---------------------------------------------
+    def _kernel_for(self, w: Weights, delta_key: Optional[str] = None):
+        """Kernelize under ``w``; returns ``(kernel, action)``.
+
+        Three outcomes, cheapest first (counted in ``_kernel_outcomes``):
+
+        * ``"reuse"``   — weight-content-hash LRU hit: identical weights
+          were kernelized before.
+        * ``"patch"``   — ``delta_key`` names a weight sequence whose last
+          kernel is on file and the changed edges pass journal
+          revalidation (``presolve.patch_kernel``), so the kernel's
+          weights are patched through the contraction map instead of
+          re-running the fixpoint.  Exact: the lift-time certificate is
+          re-checked per solve as always.
+        * ``"rebuild"`` — the full kernelize fixpoint.
+        """
+        from ..presolve import kernelize, patch_kernel
+
+        h = hashlib.blake2b(digest_size=16)
+        c64 = np.ascontiguousarray(np.asarray(w.c, dtype=np.float64))
+        cs64 = np.ascontiguousarray(np.asarray(w.c_s, dtype=np.float64))
+        ct64 = np.ascontiguousarray(np.asarray(w.c_t, dtype=np.float64))
+        for arr in (c64, cs64, ct64):
+            h.update(arr.tobytes())
+        key = h.hexdigest()
+        with self._cache_lock:
+            kernel = self._kernels.get(key)
+            if kernel is not None:
+                self._kernels.move_to_end(key)
+                self._kernel_outcomes["reuse"] += 1
+                if delta_key is not None:
+                    self._kernel_recent[delta_key] = (c64, cs64, ct64,
+                                                      kernel)
+                    self._kernel_recent.move_to_end(delta_key)
+                return kernel, "reuse"
+            recent = (self._kernel_recent.get(delta_key)
+                      if delta_key is not None else None)
+        # kernelize/patch outside the lock; a concurrent duplicate costs a
+        # redundant kernelization, never a wrong result
+        action, kernel = "rebuild", None
+        if recent is not None:
+            kernel = patch_kernel(recent[3], recent[:3], (c64, cs64, ct64))
+            if kernel is not None:
+                action = "patch"
+        if kernel is None:
+            kernel = kernelize(self.problem.instance, c=w.c, c_s=w.c_s,
+                               c_t=w.c_t)
+        with self._cache_lock:
+            self._kernel_outcomes[action] += 1
+            kernel = self._kernels.setdefault(key, kernel)
+            self._kernels.move_to_end(key)
+            while len(self._kernels) > self._kernel_max:
+                self._kernels.popitem(last=False)
+            if delta_key is not None:
+                self._kernel_recent[delta_key] = (c64, cs64, ct64, kernel)
+                self._kernel_recent.move_to_end(delta_key)
+                while len(self._kernel_recent) > self._delta_max:
+                    self._kernel_recent.popitem(last=False)
+        return kernel, action
+
+    def _kernel_cfg(self, cfg: IRLSConfig, kernel_n: int) -> IRLSConfig:
+        """Config for the kernel solve: block Jacobi needs blocks with a
+        sensible number of nodes, so tiny kernels run point Jacobi rather
+        than partitioning 30 nodes 16 ways."""
+        if cfg.precond == "block_jacobi" and kernel_n < 8 * cfg.n_blocks:
+            return dataclasses.replace(cfg, precond="jacobi", n_blocks=1)
+        return cfg
+
+    def _kernel_session(self, kernel, cfg: IRLSConfig):
+        """Session over the kernel topology on this session's device,
+        cached on the kernel's fingerprint: weight vectors that reduce to
+        the same kernel topology share its partition, plans and drivers."""
+        kcfg = self._kernel_cfg(cfg, kernel.kernel_n)
+        nb = kcfg.n_blocks if kcfg.precond == "block_jacobi" else 1
+        key = (topology_fingerprint(kernel.instance), nb)
+        sess = self._kernel_sessions.get(key)
+        if sess is None:
+            with self._lock_for(("kernel",) + key):
+                sess = self._kernel_sessions.get(key)
+                if sess is None:
+                    sess = MinCutSession(
+                        Problem.build(kernel.instance, n_blocks=nb),
+                        cfg=kcfg, backend=self.backend, device=self.device)
+                    self._kernel_sessions[key] = sess
+        return sess, kcfg
+
+    def _lift_result(self, kernel, kres: SolveResult, rounding,
+                     t_presolve: float,
+                     action: Optional[str] = None) -> SolveResult:
+        """Map a kernel-space SolveResult back to the original vertex set,
+        attaching the exact cut certificate."""
+        v = kernel.lift_voltages(kres.voltages)
+        cut = None
+        if rounding is not None and kres.cut is not None:
+            kside = np.asarray(kres.cut.in_source, dtype=bool)
+            cert = kernel.certificate(kside)
+            meta = dict(kres.cut.meta or {})
+            meta["presolve"] = {
+                "kernel_n": kernel.kernel_n, "kernel_m": kernel.kernel_m,
+                "base": kernel.base, "stats": kernel.stats,
+                "certificate": cert,
+            }
+            cut = RoundingResult(in_source=kernel.lift_partition(kside),
+                                 cut_value=cert["lifted_cut"], meta=meta)
+        timings = dict(kres.timings)
+        timings["presolve"] = t_presolve
+        timings["total"] = timings.get("total", 0.0) + t_presolve
+        # the kernel session built the solve telemetry (n/m are the KERNEL
+        # size, the instance actually solved); graft the reduction stats
+        # and the presolve-inclusive phases on top
+        tel = dict(kres.telemetry) if kres.telemetry else None
+        if tel is not None:
+            tel["presolve"] = {
+                "kernel_n": kernel.kernel_n, "kernel_m": kernel.kernel_m,
+                "node_reduction": kernel.node_reduction,
+                "edge_reduction": kernel.edge_reduction,
+                "base": kernel.base, "stats": kernel.stats,
+            }
+            if action is not None:
+                tel["presolve"]["action"] = action
+            tel["phases"] = {k: float(x) for k, x in timings.items()}
+            self.telemetry.add(tel)
+        return SolveResult(voltages=v, cut=cut, diagnostics=kres.diagnostics,
+                           residuals=kres.residuals, timings=timings,
+                           backend=kres.backend, pcg_iters=kres.pcg_iters,
+                           telemetry=tel)
+
+    def _trivial_from_kernel(self, kernel, rounding, backend,
+                             t_presolve: float,
+                             action: Optional[str] = None) -> SolveResult:
+        """The reductions decided the whole cut (kernel_n == 0, including
+        the s-t-disconnected case, where base == 0)."""
+        in_source = kernel.lift_partition(None)
+        cert = kernel.certificate(None)
+        cut = None
+        if rounding is not None:
+            cut = RoundingResult(
+                in_source=in_source, cut_value=cert["lifted_cut"],
+                meta={"method": "presolve_trivial",
+                      "presolve": {"kernel_n": 0, "base": kernel.base,
+                                   "stats": kernel.stats,
+                                   "certificate": cert}})
+        timings = {"presolve": t_presolve, "total": t_presolve}
+        tel = build_solve_telemetry(self.cfg, backend, 0, 0, timings,
+                                    pcg_iters=[])
+        tel["trivial"] = "presolve"
+        tel["presolve"] = {
+            "kernel_n": 0, "kernel_m": 0,
+            "node_reduction": kernel.node_reduction,
+            "edge_reduction": kernel.edge_reduction,
+            "base": kernel.base, "stats": kernel.stats,
+        }
+        if action is not None:
+            tel["presolve"]["action"] = action
+        self.telemetry.add(tel)
+        return SolveResult(voltages=in_source.astype(np.float64), cut=cut,
+                           diagnostics=None, residuals=None,
+                           timings=timings, backend=backend, pcg_iters=None,
+                           telemetry=tel)
+
+    def _solve_presolve(self, weights, warm_from, rounding, backend,
+                        cfg: IRLSConfig,
+                        delta_key: Optional[str] = None) -> SolveResult:
+        w = (self.problem.check_weights(weights) if weights is not None
+             else as_weights(self.problem.instance))
+        t0 = time.perf_counter()
+        with trace.span("session.presolve", n=self.problem.instance.n):
+            kernel, action = self._kernel_for(w, delta_key=delta_key)
+        t_pre = time.perf_counter() - t0
+        if kernel.trivial:
+            return self._trivial_from_kernel(kernel, rounding, backend,
+                                             t_pre, action=action)
+        sess, kcfg = self._kernel_session(kernel, cfg)
+        v0 = None
+        if warm_from is not None:
+            wv = np.asarray(warm_from.voltages
+                            if isinstance(warm_from, SolveResult)
+                            else warm_from)
+            if wv.shape[0] == kernel.n:
+                # kernel node k's id IS its surviving union-find root, so
+                # the projection is a gather of the original voltages
+                roots = np.nonzero(kernel.kernel_of_root >= 0)[0]
+                v0 = wv[roots]
+        kres = sess.solve(weights=as_weights(kernel.instance),
+                          warm_from=v0, rounding=rounding, backend=backend,
+                          cfg=kcfg, delta_key=delta_key)
+        return self._lift_result(kernel, kres, rounding, t_pre,
+                                 action=action)
+
+    def _solve_batch_presolve(self, ws: List[Weights], rounding,
+                              cfg: IRLSConfig,
+                              delta_keys: Optional[Sequence] = None,
+                              ) -> List[SolveResult]:
+        out: List[Optional[SolveResult]] = [None] * len(ws)
+        groups: Dict[tuple, List[tuple]] = {}
+        for i, w in enumerate(ws):
+            dk = delta_keys[i] if delta_keys is not None else None
+            t0 = time.perf_counter()
+            with trace.span("session.presolve", n=self.problem.instance.n):
+                kernel, action = self._kernel_for(w, delta_key=dk)
+            t_pre = time.perf_counter() - t0
+            if kernel.trivial:
+                out[i] = self._trivial_from_kernel(kernel, rounding,
+                                                   "scanned", t_pre,
+                                                   action=action)
+            else:
+                key = (topology_fingerprint(kernel.instance),)
+                groups.setdefault(key, []).append((i, kernel, t_pre, action))
+        for items in groups.values():
+            sess, kcfg = self._kernel_session(items[0][1], cfg)
+            kress = sess.solve_batch(
+                [as_weights(k.instance) for _, k, _, _ in items],
+                rounding=rounding, cfg=kcfg)
+            for (i, kernel, t_pre, action), kres in zip(items, kress):
+                out[i] = self._lift_result(kernel, kres, rounding, t_pre,
+                                           action=action)
+        return [r for r in out if r is not None]
+
+    # -- drivers ----------------------------------------------------------------
     def _plans_for(self, cfg: IRLSConfig):
         block_plan = None
         if cfg.precond == "block_jacobi":
@@ -611,21 +950,79 @@ class MinCutSession:
                     else None)
         return block_plan, ell_plan
 
+    def _lock_for(self, key: tuple) -> threading.Lock:
+        with self._cache_lock:
+            return self._compile_locks.setdefault(key, threading.Lock())
+
     def _cached(self, key: tuple, build):
         """The cached driver under ``key``, built once: concurrent callers
         of a cold key wait for the one build (a lock per key)."""
         got = self._steppers.get(key)
         if got is None:
-            with self._cache_lock:
-                lock = self._compile_locks.setdefault(key, threading.Lock())
-            with lock:
+            with self._lock_for(key):
                 got = self._steppers.get(key)
                 if got is None:
                     got = build()
                     self._steppers[key] = got
         return got
 
-    def _solve_host(self, cfg, weights, warm_from, collect_voltages, timings):
+    def _stage_with_delta(self, w: Weights, cfg: IRLSConfig, backend: str,
+                          delta_key: str):
+        """Delta-aware edge-weight staging for a keyed weight SEQUENCE.
+
+        Remembers the previous ``Weights`` under ``delta_key`` and diffs the
+        new vector against them.  On the fused-ELL path the staged (n, k)
+        ELL weight table is carried forward too: a sparse diff rewrites
+        only the changed edges' two slots (``lap.ell_edge_weights_delta``)
+        instead of restaging all m, bit-equal to a full restage because
+        both round the same float64 inputs to the compute dtype once.
+
+        Returns ``(c_ell, info)``: the staged table on this session's
+        device (None off the fused-ELL path) and a telemetry record whose
+        ``"mode"`` is ``"cold"`` (no previous entry), ``"delta"`` (sparse
+        diff applied) or ``"full"`` (diff denser than ``DELTA_MAX_FRAC``
+        or dtype changed: full restage, cache refreshed)."""
+        m = int(np.asarray(w.c).shape[0])
+        c64 = np.array(w.c, dtype=np.float64)
+        dtype = torch_dtype(cfg)
+        fused_ell = (backend in self.BACKENDS and cfg.layout == "ell"
+                     and cfg.fuse_edge_sweep)
+        with self._cache_lock:
+            entry = self._delta.get(delta_key)
+        info = {"key": delta_key, "mode": "cold", "changed_edges": None,
+                "edges": m}
+        changed = None
+        if entry is not None:
+            diff = np.flatnonzero(entry["c"] != c64)
+            info["changed_edges"] = int(diff.size)
+            if diff.size <= DELTA_MAX_FRAC * max(1, m):
+                changed = diff
+            info["mode"] = "delta" if changed is not None else "full"
+        c_ell = None
+        if fused_ell:
+            if (changed is not None and entry.get("c_ell") is not None
+                    and entry.get("dtype") == str(dtype)):
+                c_ell = lap.ell_edge_weights_delta(
+                    self.problem.ell_delta_map(self.device), entry["c_ell"],
+                    c64, changed)
+            else:
+                # cold (or unusable) entry: stage everything once, so the
+                # next solve under this key can go sparse
+                if entry is not None:
+                    info["mode"] = "full"
+                c_ell = lap.ell_edge_weights(
+                    self.problem.ell_plan(self.device),
+                    torch.as_tensor(c64).to(dtype).to(self.device))
+        with self._cache_lock:
+            self._delta[delta_key] = {"c": c64, "c_ell": c_ell,
+                                      "dtype": str(dtype)}
+            self._delta.move_to_end(delta_key)
+            while len(self._delta) > self._delta_max:
+                self._delta.popitem(last=False)
+        return c_ell, info
+
+    def _solve_host(self, cfg, weights, warm_from, collect_voltages, timings,
+                    c_ell=None):
         prob = self.problem
         dtype = torch_dtype(cfg)
         t = time.perf_counter()
@@ -648,33 +1045,38 @@ class MinCutSession:
             dev_w = (g.c, g.c_s, g.c_t)
         v, diag = run_host_loop(stepper, cfg, prob.instance.n, dtype, v0=v0,
                                 collect_voltages=collect_voltages,
-                                weights=dev_w)
+                                weights=dev_w, c_ell=c_ell)
         diag.setup_time = timings["setup"]
         return prob.to_original(v.cpu().numpy()), diag
 
-    def _get_scanned(self, cfg, dtype, warm: bool):
-        """The scanned program of ``cfg``, cached on (cfg, warm).  One
-        program serves a single solve (a batch of one) and a batch alike."""
+    def _get_scanned(self, cfg, dtype, warm: bool, ext: bool = False):
+        """The scanned program of ``cfg``, cached on (cfg, warm, ext).  One
+        program serves a single solve (a batch of one) and a batch alike;
+        ``ext`` takes the ELL weight table staged by the caller."""
         def build():
             block_plan, ell_plan = self._plans_for(cfg)
             g0 = self.problem.device_graph(dtype, device=self.device)
             return make_scanned_program(g0.src, g0.dst, cfg, block_plan,
-                                        ell_plan, warm=warm)
+                                        ell_plan, warm=warm, ext_stage=ext)
 
-        return self._cached((cfg, "scanned", warm), build)
+        return self._cached((cfg, "scanned", warm, ext), build)
 
-    def _solve_scanned(self, cfg, weights, timings, warm_from=None):
+    def _solve_scanned(self, cfg, weights, timings, warm_from=None,
+                       c_ell=None):
         prob = self.problem
         dtype = torch_dtype(cfg)
         warm = warm_from is not None
+        ext = c_ell is not None
         t = time.perf_counter()
-        have = (cfg, "scanned", warm) in self._steppers
-        run = self._get_scanned(cfg, dtype, warm)
+        have = (cfg, "scanned", warm, ext) in self._steppers
+        run = self._get_scanned(cfg, dtype, warm, ext)
         timings["setup"] = 0.0 if have else time.perf_counter() - t
         # a batch of one lane: the arithmetic of every lane of solve_batch,
         # so a solo solve and the same weights co-batched agree
         g = prob.device_graph(dtype, weights, device=self.device)
         args = [g.c[None], g.c_s[None], g.c_t[None]]
+        if ext:
+            args.append(c_ell[None])
         if warm:
             wv = np.asarray(warm_from.voltages
                             if isinstance(warm_from, SolveResult)

@@ -282,6 +282,9 @@ def fused_ell_sweep(cols: torch.Tensor, c_ell: torch.Tensor,
     vals = torch.empty(c_ell.shape, dtype=v.dtype, device=v.device)
     diag, r_s, r_t = (torch.empty(c_s.shape, dtype=v.dtype, device=v.device)
                       for _ in range(3))
+    if diag.numel() == 0:
+        # no rows or no lanes: the kernel's entry launches nothing
+        return vals, diag, r_s, r_t
     _launch("fused_ell_sweep_f32", v.device, cols.data_ptr(),
             c_ell.data_ptr(), c_s.data_ptr(), c_t.data_ptr(), v.data_ptr(),
             eps_sq(eps), vals.data_ptr(), diag.data_ptr(), r_s.data_ptr(),
@@ -306,6 +309,9 @@ def block_diag_matvec(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     _require(bs <= _MAX_BS, f"block size {bs} exceeds {_MAX_BS}")
     _contiguous(blocks=blocks, x=x)
     y = torch.empty((p, bs), dtype=x.dtype, device=x.device)
+    if y.numel() == 0:
+        # no blocks: the kernel's entry launches nothing
+        return y
     plan = _bdm_plan(p, bs, _aligned(blocks, x))
     _launch("block_diag_matvec_f32", x.device, blocks.data_ptr(),
             x.data_ptr(), y.data_ptr(), p, bs, *plan)

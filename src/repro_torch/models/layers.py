@@ -9,7 +9,7 @@ full-attention forwards through the hand-written CUDA kernel
 (``kernels/csrc/flash_fwd.cu``).  The JAX package's ``lax.map`` and
 ``lax.scan`` over chunks are Python loops here.
 
-Not ported yet (ROADMAP queue 1, item 13): the flash backward and its custom
+Not ported yet (ROADMAP queue 1, "The rest of the model stack"): the flash backward and its custom
 VJP, the MoE layers, ``embedding_bag*`` and ``mlp``.
 """
 from __future__ import annotations

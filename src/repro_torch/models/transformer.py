@@ -17,7 +17,7 @@ Python loop; local ('L') layers keep window-sized ring caches aligned to
 decode's ``pos % w``, global layers full-length caches, and decode updates
 the caches in place.
 
-Not ported yet (ROADMAP queue 1, item 13): MoE layers, ``lm_loss`` and
+Not ported yet (ROADMAP queue 1, "The rest of the model stack"): MoE layers, ``lm_loss`` and
 training, sharding (``rules``), ``abstract_params``/``param_shardings``.
 """
 from __future__ import annotations
@@ -32,8 +32,8 @@ from torch import nn
 
 from . import layers as L
 
-_NOT_PORTED_MOE = ("MoE layers are not ported yet (ROADMAP.md queue 1, item "
-                   "13: MoE layers)")
+_NOT_PORTED_MOE = ("MoE layers are not ported yet (ROADMAP.md queue 1, \"The "
+                   "rest of the model stack\": MoE)")
 
 
 def as_torch_dtype(dtype) -> torch.dtype:

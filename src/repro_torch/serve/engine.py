@@ -45,8 +45,9 @@ errors raised during batch execution (e.g. a cfg whose partition geometry
 doesn't match the server's) land on every future of that batch.
 
 The JAX package's ``repro.serve.engine`` over the port's session, on the
-server's ``device`` (default ``"cuda"``).  The sharded backend and presolve
-are later slices of the port and raise ``NotImplementedError``.
+server's ``device`` (default ``"cuda"``).  The sharded backend is not
+ported yet (ROADMAP queue 1, ``distributed/``) and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -91,8 +92,7 @@ def default_workers(backend: str) -> int:
 
 
 _SHARDED = ("the sharded backend is not ported yet: ROADMAP queue 1, "
-            "item 12 (distributed/)")
-_PRESOLVE = "presolve is not ported yet: ROADMAP queue 1, item 8"
+            "distributed/")
 
 
 @dataclasses.dataclass
@@ -104,12 +104,14 @@ class _Request:
     future: Future
     t_submit: float
     tenant: Optional[str] = None
+    presolve: bool = False
 
     @property
     def group_key(self):
-        # tenant is a batch key too: a micro-batch must share one
-        # warm-start source
-        return (self.topo_key, self.cfg, self.rounding, self.tenant)
+        # tenant and presolve are batch keys too: a micro-batch must share
+        # one warm-start source and one solve pipeline
+        return (self.topo_key, self.cfg, self.rounding, self.tenant,
+                self.presolve)
 
 
 class MinCutServer:
@@ -153,8 +155,6 @@ class MinCutServer:
                  backend: str = "scanned", presolve: bool = False,
                  warm_capacity: int = 32, n_workers: Optional[int] = None,
                  flush_policy: str = "idle", device="cuda"):
-        if presolve:
-            raise NotImplementedError(_PRESOLVE)
         if backend == "sharded":
             raise NotImplementedError(_SHARDED)
         if backend not in MinCutSession.BACKENDS:
@@ -171,6 +171,7 @@ class MinCutServer:
         self.rounding = rounding
         self.seed = seed
         self.backend = backend
+        self.presolve = presolve
         self.n_workers = int(n_workers)
         self.flush_policy = flush_policy
         self.device = torch.device(device)
@@ -228,7 +229,7 @@ class MinCutServer:
         warm-start from that tenant's previous solution on the same
         topology (keyed on (tenant, topology fingerprint)) and only batch
         with their own tenant's requests.  ``presolve`` — kernelize before
-        solving (not ported yet: True raises).
+        solving (default: the server's ``presolve`` setting).
         """
         req = self._admit(topo, weights, cfg, rounding, tenant, presolve)
         self._enqueue([req])
@@ -246,7 +247,7 @@ class MinCutServer:
         try:
             for w in weights_list:
                 reqs.append(self._admit(topo, w, cfg, rounding, tenant,
-                                        False))
+                                        None))
         except Exception:
             for _ in reqs:
                 self.admission.release()
@@ -257,8 +258,6 @@ class MinCutServer:
     def _admit(self, topo, weights, cfg, rounding, tenant, presolve
                ) -> "_Request":
         """Validate one request and take its admission slot."""
-        if presolve:
-            raise NotImplementedError(_PRESOLVE)
         if isinstance(topo, str):
             if not self.cache.known(topo):
                 raise KeyError(f"unknown topology key {topo!r}; register() "
@@ -276,7 +275,9 @@ class MinCutServer:
                         rounding=self.rounding if rounding is _DEFAULT
                         else rounding,
                         future=Future(), t_submit=0.0,   # stamped at enqueue
-                        tenant=tenant)
+                        tenant=tenant,
+                        presolve=self.presolve if presolve is None
+                        else presolve)
 
     def _enqueue(self, reqs: Sequence["_Request"]) -> None:
         # the stopped-check + enqueue are atomic against stop(): a request
@@ -441,7 +442,7 @@ class MinCutServer:
 
     def _execute(self, batch: MicroBatch, wid: int) -> None:
         reqs: List[_Request] = batch.requests
-        topo_key, cfg, rounding, tenant = batch.key
+        topo_key, cfg, rounding, tenant, presolve = batch.key
         t_exec = time.perf_counter()
         get_registry().counter("serve_batches_total").inc()
         get_registry().gauge("serve_in_flight").set(self.admission.in_flight)
@@ -458,21 +459,30 @@ class MinCutServer:
                     v0 = self._warm_lookup(tenant, topo_key)
                 t_dispatch = time.perf_counter()
                 # tenant doubles as the weight-sequence identity for the
-                # session's delta-staging cache (the session ignores it off
-                # the fused-ELL path; on it, delta staging is not ported yet)
+                # session's delta-staging cache: a tenant replaying "same
+                # topology, drifting weights" restages only the changed
+                # ELL slots (and patches presolve kernels) between solves
                 dks = None if tenant is None else [tenant] * len(reqs)
-                if self.backend == "scanned":
+                if self.backend == "scanned" and not presolve:
                     results = sess.solve_batch(
                         [r.weights for r in reqs], rounding=rounding, cfg=cfg,
                         pad_to=batch.bucket,
                         warm_from=None if v0 is None else [v0] * len(reqs),
                         delta_keys=dks)
+                elif self.backend == "scanned":
+                    # presolve batches group by kernel topology inside the
+                    # session and run cold (the kernel basis shifts with
+                    # the weights, so prior voltages do not transfer)
+                    results = sess.solve_batch([r.weights for r in reqs],
+                                               rounding=rounding, cfg=cfg,
+                                               presolve=True, delta_keys=dks)
                 else:
                     # host: no batched program — the batch still amortizes
                     # the cached session, one solve per request
                     results = [sess.solve(weights=r.weights,
                                           rounding=rounding, cfg=cfg,
-                                          warm_from=v0, delta_key=tenant)
+                                          presolve=presolve, warm_from=v0,
+                                          delta_key=tenant)
                                for r in reqs]
             except Exception as e:
                 now = time.perf_counter()

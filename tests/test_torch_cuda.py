@@ -549,6 +549,32 @@ def test_fused_ell_sweep_misaligned_takes_scalar_variant(cuda):
         _held(ops.fused_ell_sweep(c, c_in, s, t, x, 1e-6), want, 3e-5)
 
 
+@pytest.mark.parametrize("lead", [(), (3,)])
+def test_fused_ell_sweep_no_rows(cuda, lead):
+    """n = 0 rows: empty outputs, and no launch is counted (the kernel's
+    entry launches nothing)."""
+    cols = torch.zeros((0, 8), dtype=torch.int32, device=cuda)
+    c_ell = torch.zeros(lead + (0, 8), device=cuda)
+    c_s, c_t, v = (torch.zeros(lead + (0,), device=cuda) for _ in range(3))
+    before = ops.launches["fused_ell_sweep"]
+    got = ops.fused_ell_sweep(cols, c_ell, c_s, c_t, v, 1e-6)
+    torch.cuda.synchronize()
+    assert ops.launches["fused_ell_sweep"] == before
+    assert [tuple(t.shape) for t in got] == [lead + (0, 8)] + [lead + (0,)] * 3
+
+
+@pytest.mark.parametrize("bs", [16, 30])
+def test_block_diag_matvec_no_blocks(cuda, bs):
+    """P = 0 blocks: an empty result, and no launch is counted."""
+    A = torch.zeros((0, bs, bs), device=cuda)
+    x = torch.zeros((0, bs), device=cuda)
+    before = ops.launches["block_diag_matvec"]
+    y = ops.block_diag_matvec(A, x)
+    torch.cuda.synchronize()
+    assert ops.launches["block_diag_matvec"] == before
+    assert tuple(y.shape) == (0, bs)
+
+
 def _bdm_held(A, x):
     """The kernel against the plain version at 1e-5 of Σ|A||x| per row (dot
     products of length bs in another order), one launch per call."""
@@ -614,3 +640,53 @@ def test_block_diag_matvec_misaligned_takes_scalar_variant(cuda):
     x = torch.randn((40, 128), generator=gen, device=cuda)
     assert ops._bdm_plan(40, 128, ops._aligned(shifted, x)).g_log2 == -1
     _bdm_held(shifted, x)
+
+
+# -- delta staging of the fused-ELL weight table on the card ----------------
+
+def test_delta_staged_solve_batch_through_kernels(cuda):
+    """The delta-staged fused-ELL ``solve_batch`` on a small grid, through
+    the kernels: bit-equal to the unstaged batch (voltages, cuts, PCG
+    counts) with the same launch counts, under deterministic algorithms
+    (the initial system's scatters then sum in one order)."""
+    from repro_torch.core import IRLSConfig, MinCutSession, Problem, Weights
+    from repro_torch.graphs import generators as gen
+
+    side, lanes = 32, 4
+    inst = gen.segmentation_instance(gen.grid_2d(side, side, seed=0),
+                                     (side, side), seed=1)
+    cfg = IRLSConfig(n_irls=6, pcg_max_iters=20, precond="jacobi", n_blocks=1,
+                     layout="ell", fuse_edge_sweep=True, use_pallas=True)
+    sess = MinCutSession(Problem.build(inst, 1), cfg, backend="scanned",
+                         device=cuda)
+    rng = np.random.default_rng(0)
+    c = np.asarray(inst.graph.weight, dtype=np.float64)
+    torch.use_deterministic_algorithms(True)
+    try:
+        for rnd in range(3):
+            ws = []
+            for _ in range(lanes):
+                c = c.copy()
+                idx = rng.choice(c.size, size=10, replace=False)
+                c[idx] *= np.exp(rng.normal(0.0, 0.3, size=10))
+                ws.append(Weights(c, inst.s_weight, inst.t_weight))
+            counts = []
+            for keys in (["t"] * lanes, None):
+                before = dict(ops.launches)
+                out = sess.solve_batch(ws, rounding="sweep", delta_keys=keys)
+                torch.cuda.synchronize()
+                counts.append({k: ops.launches[k] - before[k]
+                               for k in before})
+                if keys is not None:
+                    keyed = out
+            for a, b in zip(keyed, out):
+                np.testing.assert_array_equal(a.voltages, b.voltages)
+                assert a.cut_value == b.cut_value
+                np.testing.assert_array_equal(a.pcg_iters, b.pcg_iters)
+            assert counts[0] == counts[1], counts
+            assert counts[0]["fused_ell_sweep"] == cfg.n_irls
+            assert counts[0]["ell_spmv"] > 0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert [r.telemetry["delta"]["mode"] for r in keyed] == ["delta"] * lanes
+    assert keyed[0].telemetry["delta"]["changed_edges"] == 10

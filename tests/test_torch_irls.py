@@ -129,15 +129,21 @@ def test_session_weights_and_warm_start(road_instance):
 
 
 def test_session_later_slices_raise(grid_instance):
-    """The sharded backend, presolve and delta staging of the fused-ELL
-    weight table are later slices (the scanned backend is ported)."""
+    """Only the sharded backend is a later slice: presolve and delta staging
+    of the fused-ELL weight table are ported, and a keyed solve is the
+    keyless one bit for bit."""
     s = MinCutSession(Problem.build(_port(grid_instance), 1),
                       IRLSConfig(precond="jacobi", n_irls=1), device="cpu")
     fused_ell = IRLSConfig(precond="jacobi", n_irls=1, layout="ell")
-    for kwargs in ({"backend": "sharded"}, {"presolve": True},
-                   {"delta_key": "tenant", "cfg": fused_ell}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            s.solve(**kwargs)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*distributed/"):
+        s.solve(backend="sharded")
+    pre = s.solve(presolve=True)
+    assert pre.cut.meta["presolve"]["certificate"]["rel_gap"] == \
+        pytest.approx(0.0, abs=1e-9)
+    keyed = s.solve(delta_key="tenant", cfg=fused_ell)
+    assert keyed.telemetry["delta"]["mode"] == "cold"
+    np.testing.assert_array_equal(keyed.voltages,
+                                  s.solve(cfg=fused_ell).voltages)
     with pytest.raises(ValueError, match="unknown backend"):
         s.solve(backend="tpu")
 

@@ -298,18 +298,25 @@ def test_edge_reweight_once_per_irls_iteration(grid_instance, monkeypatch):
 
 def test_later_slices_raise(grid_instance):
     """Delta staging of the fused-ELL weight table, presolve and the
-    external stage are later slices; off the fused-ELL path a delta key
-    changes nothing, as in the JAX package."""
+    external stage are ported and no longer raise: keyed batches equal the
+    keyless ones bit for bit on the fused-ELL path and off it, presolve
+    batches are certified, and the external stage needs an ELL plan."""
     _, ts = _sessions(grid_instance, SERVER)
     ws = _drifted(grid_instance)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.solve_batch(ws, cfg=IRLSConfig(**dict(KERNEL, n_blocks=1,
-                                                 precond="jacobi")),
-                       delta_keys=["a"] * B)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.solve_batch(ws, presolve=True)
+    fused = IRLSConfig(**dict(KERNEL, n_blocks=1, precond="jacobi"))
+    keyed = ts.solve_batch(ws, cfg=fused, rounding=None,
+                           delta_keys=["a"] * B)
+    for a, b in zip(keyed, ts.solve_batch(ws, cfg=fused, rounding=None)):
+        np.testing.assert_array_equal(a.voltages, b.voltages)
+    # every lane drifts every edge: denser than DELTA_MAX_FRAC, so the
+    # lanes after the first restage in full
+    assert [r.telemetry["delta"]["mode"] for r in keyed] == \
+        ["cold"] + ["full"] * (B - 1)
+    for r in ts.solve_batch(ws, presolve=True):
+        assert r.cut.meta["presolve"]["certificate"]["rel_gap"] == \
+            pytest.approx(0.0, abs=1e-9)
     g = ts.problem.device_graph(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="ext_stage"):
         make_scanned_program(g.src, g.dst, IRLSConfig(**KERNEL),
                              ext_stage=True)
     keyed = ts.solve_batch(ws, rounding=None, delta_keys=["a"] * B)

@@ -418,13 +418,14 @@ def test_server_host_backend_per_request_solves(grid):
 
 
 def test_server_rejects_unknown_backend_and_later_slices():
+    """Only the sharded backend is a later slice; presolve is ported."""
     with pytest.raises(ValueError):
         _server(backend="warp")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*distributed/"):
         _server(backend="sharded")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _server(presolve=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with _server(presolve=True) as srv:
+        assert srv.presolve
+    with pytest.raises(NotImplementedError, match="ROADMAP.*distributed/"):
         default_workers("sharded")
     assert default_workers("scanned") == 4
 
