@@ -7,14 +7,17 @@
                  with JSON + Prometheus-text exposition
     telemetry  — the ``SolveResult.telemetry`` schema and its
                  per-session / per-server aggregation
+    dashboard  — the JSONL sink's reader: per-path span aggregates and
+                 the text tree that ``launch/obs.py`` renders
 
 Copies of the JAX package's ``repro.obs`` modules of the same names; its
-dashboard and perf gate wait for a later slice of the port.  Span names:
+perf gate (``obs/perf``) waits for a later slice of the port.  Span names:
 
     serve.*     engine batch/assembly/session_build   (serve/)
     session.*   solve / solve_batch / irls / rounding (core/session.py)
+    cuttree.*   build / wave / refine / repair        (cuttree/)
 """
-from . import metrics, telemetry, trace
+from . import dashboard, metrics, telemetry, trace
 from .metrics import (Counter, Gauge, Histogram, MetricsRegistry, Reservoir,
                       get_registry, parse_prometheus_text)
 from .telemetry import TelemetryAggregator, build_solve_telemetry

@@ -19,11 +19,14 @@ device (``device="cuda"`` by default):
                         counters, flush-reason counts, text dump
                         (metrics.py)
     ServerOverloaded  — admission-control rejection (backpressure)
+    CutTreeService    — all-pairs min-cut queries from cut trees built
+                        once per topology over the same session cache,
+                        repaired under weight drift (cuttree.py)
 
-The port of the JAX package's ``repro.serve``; its cut-tree service
-(``serve/cuttree.py``) waits for the cut-tree slice of the port.
+The port of the JAX package's ``repro.serve``.
 """
 from .batcher import MicroBatch, MicroBatcher, bucket_size
 from .cache import AdmissionController, CacheStats, ServerOverloaded, SessionCache
+from .cuttree import CutTreeService
 from .engine import FLUSH_POLICIES, MinCutServer, default_workers
 from .metrics import ServeMetrics, percentile

@@ -690,3 +690,59 @@ def test_delta_staged_solve_batch_through_kernels(cuda):
         torch.use_deterministic_algorithms(False)
     assert [r.telemetry["delta"]["mode"] for r in keyed] == ["delta"] * lanes
     assert keyed[0].telemetry["delta"]["changed_edges"] == 10
+
+
+# -- cut trees through edge_reweight ------------------------------------------
+
+# the cut-tree build's batches: up to 64 lanes over grids of side 6, 32, 64
+@pytest.mark.parametrize("m,n", [(60, 36), (1984, 1024), (8064, 4096)])
+def test_edge_reweight_kernel_cut_tree_lanes(cuda, m, n):
+    """B = 64 lanes over one small graph (the cut-tree build's widest
+    batch), bit for bit against the plain version."""
+    rng = np.random.default_rng(m)
+    src = rng.integers(0, n, m).astype(np.int32)
+    dst = rng.integers(0, n, m).astype(np.int32)
+    c = rng.uniform(0.1, 3.0, (64, m)).astype(np.float32)
+    v = rng.uniform(0, 1, (64, n)).astype(np.float32)
+    s, d, cc, vv = _dev(cuda, src, dst, c, v)
+    before = ops.launches["edge_reweight"]
+    r = ops.edge_reweight_r(s, d, cc, vv, 1e-6)
+    torch.cuda.synchronize()
+    assert ops.launches["edge_reweight"] == before + 1
+    want = ref.edge_reweight_ref(s.long(), d.long(), cc, vv, 1e-6)
+    np.testing.assert_array_equal(r.cpu().numpy(), want.cpu().numpy())
+
+
+def test_cut_tree_through_edge_reweight_matches_plain_route(cuda):
+    """A side-6 grid's IRLS cut tree built through ``edge_reweight``
+    (``use_pallas=True``) under deterministic algorithms: array-equal to
+    the same build on the plain route on the card (parent, weight, sides,
+    acceptance order), with one launch per IRLS iteration of every
+    ``solve_batch`` call."""
+    import dataclasses
+
+    from repro_torch.cuttree import DEFAULT_CFG, build_cut_tree
+    from repro_torch.graphs import generators as gen
+
+    inst = gen.segmentation_instance(gen.grid_2d(6, 6, seed=2), (6, 6),
+                                     seed=3)
+    trees = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for use_pallas in (True, False):
+            cfg = dataclasses.replace(DEFAULT_CFG, use_pallas=use_pallas)
+            before = ops.launches["edge_reweight"]
+            trees[use_pallas] = build_cut_tree(inst, cfg=cfg, max_batch=8,
+                                               device=cuda)
+            torch.cuda.synchronize()
+            launched = ops.launches["edge_reweight"] - before
+            calls = sum(-(-w // 8)
+                        for w in trees[use_pallas].meta["wave_sizes"])
+            assert launched == (cfg.n_irls * calls if use_pallas else 0)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    a, b = trees[True], trees[False]
+    np.testing.assert_array_equal(a.parent, b.parent)
+    np.testing.assert_array_equal(a.weight, b.weight)
+    np.testing.assert_array_equal(a.sides, b.sides)
+    assert a.meta["order"] == b.meta["order"]

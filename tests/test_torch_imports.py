@@ -65,6 +65,25 @@ def test_port_lm_modules_stand_alone():
                      "repro_torch.data.lm", "repro_torch.launch.lm_serve"}
 
 
+def test_port_cuttree_and_dashboard_modules_stand_alone():
+    """The cut-tree modules, their service and CLI, and the span dashboard
+    with its CLI import with ``jax`` blocked and bring in no ``repro``
+    module."""
+    probe = _PROBE.replace("print(len(names))", "print(' '.join(names))")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", probe], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    names = set(out.stdout.split())
+    assert names >= {"repro_torch.cuttree", "repro_torch.cuttree.tree",
+                     "repro_torch.cuttree.pairs",
+                     "repro_torch.cuttree.gusfield",
+                     "repro_torch.cuttree.repair",
+                     "repro_torch.serve.cuttree",
+                     "repro_torch.launch.cut_tree",
+                     "repro_torch.obs.dashboard", "repro_torch.launch.obs"}
+
+
 def test_port_sources_name_no_jax_or_repro():
     """No source file of the port spells an import of jax or of repro."""
     for path in (SRC / "repro_torch").rglob("*.py"):
