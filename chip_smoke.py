@@ -168,6 +168,25 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
        (verify_max_rel ≤ 1e-3) and ``launch.obs`` on 12a's sink as
        subprocesses.
 
+13. The sharded solver (``distributed.solver.ShardedSolver``).
+    a. A world of one over NCCL (the solver initializes it) at full width:
+       phase 4's 96³ instance, labels and kernel config at 10 IRLS
+       iterations, on three routes — halo with the fused sweep (through
+       ``fused_ell_sweep``), halo unfused and psum (through
+       ``edge_reweight``) — each on the kernel route and the plain route
+       under deterministic algorithms: cuts within rel 1e-5 of each other
+       and 1e-3 of phase 4's host cut, one launch of the route's kernel per
+       IRLS iteration and no other, the collectives per CG step as the CPU
+       tests hold them; setup and solve walls, CG steps, bytes per step.
+       Then 13b's 48³ instance at world one, rounded two-level.
+    b. A world of four spawned ranks on the one card at 48³ (gloo over
+       CUDA tensors, checked first: NCCL takes one rank a card), both
+       schedules and the int8 halo: cuts equal to 13a's world one (rel
+       1e-5, two-level), launches and collectives per CG step as in 13a,
+       the int8 halo under 0.4× the halo's bytes and the halo under 0.7×
+       psum's, each rank's kernels held at its shard's shapes.
+    c. ``launch.solve --backend sharded`` as a subprocess (world of one).
+
 TF32 is switched off for matmuls and cuDNN, so every float32 product is a
 full float32 product.  The last two lines of standard output are the
 ``kernels`` JSON line and ``{"ok": true, "device": {...}}``.  Details go to
@@ -2241,6 +2260,409 @@ def cuttree_service_phase(ctx, seed: int, sink: str, out_dir: Path):
                 cli_json={k: got[k] for k in ("n", "m", "global_min_cut",
                                              "query_us", "verify_max_rel")})
 
+# -- phase 13: the sharded solver ---------------------------------------------
+
+# IRLS iterations of phase 13's fixed-schedule solves (cut from phase 4's
+# 50: every iteration runs its full 50 CG steps, and six full-width solves
+# must fit the phase's share of the run)
+SHARD_IRLS = 10
+# 13b: a world of four ranks on the one card, at 48³
+SHARD_RANKS, SHARD_SIDE = 4, 48
+# 13a's routes: (schedule, fuse_edge_sweep, the route's kernel)
+SHARD_ROUTES = {"halo_fused": ("halo", True, "fused_ell_sweep"),
+                "halo_unfused": ("halo", False, "edge_reweight"),
+                "psum": ("psum", True, "edge_reweight")}
+# eps of 13a's kernel-route-vs-plain-route solves, held at rel 1e-5: at
+# phase 4's 1e-6 the fixed schedule's 50 CG steps an iteration run far
+# past convergence and carry fused_ell_sweep's other order of each row's
+# sum into the sweep cut as noise; at 1e-3, as the CPU parity tests hold
+# the packages, the solves converge
+SHARD_HELD_EPS = 1e-3
+# 13b's solves: (schedule, halo compression)
+SHARD_RANK_ROUTES = {"halo_fused": ("halo", None), "psum": ("psum", None),
+                     "halo_int8": ("halo", "int8")}
+# each rank's collectives per CG step, as the CPU tests hold them
+SHARD_STEP_OPS = {"halo": {"all_gather": 1.0, "all_reduce": 2.0,
+                           "calls": 3.0},
+                  "psum": {"all_reduce": 1.0, "calls": 1.0},
+                  "halo_int8": {"all_gather": 2.0, "all_reduce": 2.0,
+                                "calls": 4.0}}
+
+
+def shard_cfg(cfg, fuse: bool = True):
+    """Phase 4's kernel config at phase 13's depth."""
+    return dataclasses.replace(cfg, n_irls=SHARD_IRLS, fuse_edge_sweep=fuse)
+
+
+def step_ops(stats) -> dict:
+    return {op: v for op, v in stats["per_pcg_step"].items() if op != "bytes"}
+
+
+def shard_kernels_held(solver, eps: float, seed: int, label: str) -> dict:
+    """The sharded path's kernels on this rank's shard tensors — the ELL
+    columns into ``[v_local | halo]``, the copies' heads and tails, or the
+    psum edge chunk against the replicated vector — against their plain
+    versions, at phase 3's and phase 7's tolerances.  Voltages from the
+    seed; no launch here counts for a path."""
+    import torch
+
+    from repro_torch.core import laplacian as lap
+    from repro_torch.kernels import ops, ref
+
+    t = solver._t
+    dev = t["c"].device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    if solver.schedule == "halo":
+        nv = solver.plan.nl + solver.p * solver.plan.b_sh
+        ext = torch.rand(nv, generator=gen, device=dev)
+        if solver.ell is not None:
+            args = (t["cols32"], t["c_ell"], t["c_s"], t["c_t"], ext, eps)
+            out["fused_ell_sweep"] = dict(
+                shape=list(t["cols32"].shape) + [nv],
+                max_abs_err=check_close(
+                    f"{label} fused_ell_sweep", ops.fused_ell_sweep(*args),
+                    lap.fused_ell_sweep(*args), 3e-5))
+        args = (t["heads32"], t["tails32"], t["c"], ext, eps)
+    else:
+        ext = torch.rand(solver.plan.n_pad, generator=gen, device=dev)
+        args = (t["src32"], t["dst32"], t["c"], ext, eps)
+    out["edge_reweight"] = dict(
+        shape=[args[0].shape[0], ext.shape[0]],
+        max_abs_err=check_close(f"{label} edge_reweight",
+                                [ops.edge_reweight_r(*args)],
+                                [ref.edge_reweight_ref(*args)], 0.0))
+    return out
+
+
+def sharded_solve(inst, cfg, schedule: str, labels, plans=None,
+                  compression=None, rounding="sweep"):
+    """One sharded solve on this rank, launch counters set to 0 just before
+    and read just after, its voltages rounded by ``rounding`` (None: not
+    rounded); returns (record, solver)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import round_voltages
+    from repro_torch.distributed.solver import ShardedSolver
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    solver = ShardedSolver(inst, cfg, schedule=schedule, labels=labels,
+                           plans=plans, halo_compression=compression,
+                           device=torch.device("cuda",
+                                               torch.cuda.current_device()))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    ops.reset_launches()
+    t = time.perf_counter()
+    v, rels, iters = solver.solve()
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t
+    launches = dict(ops.launches)
+    stats = solver.collective_stats()
+    rec = dict(setup_s=setup_s, solve_s=solve_s, launches=launches,
+               pcg_steps=stats["pcg_steps"], pcg_iters=iters.tolist(),
+               per_pcg_step=stats["per_pcg_step"], scopes=stats["scopes"],
+               finite=bool(np.isfinite(v).all()))
+    if rounding is not None:
+        t = time.perf_counter()
+        rec["cut"] = round_voltages(rounding, inst, v,
+                                    device="cuda").cut_value
+        rec["rounding_s"] = time.perf_counter() - t
+        rec["rounding"] = rounding
+    return rec, solver
+
+
+def sharded_world_one_phase(inst, labels, cfg, host_cut: float, seed: int):
+    """Phase 13a: the sharded solver in a world of one over NCCL (the
+    solver initializes it), at full width: phase 4's 96³ instance, labels
+    and kernel config, on three routes (halo with the fused sweep, halo
+    unfused, psum).  Each route runs once as a user runs it (the walls,
+    the launches, the cut against the host's, and its kernels held at the
+    world-one shard's shapes), then on the kernel route and the plain
+    route under deterministic algorithms at ``SHARD_HELD_EPS`` (the cuts
+    held against each other; the deterministic ``index_add_`` of the
+    unfused and psum builds is several times slower, so those walls do
+    not stand for the route's).  Then the 48³ instance of 13b on the
+    kernel route, rounded two-level, for 13b to hold its world of four
+    against and held itself against the host solve's two-level cut
+    there."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import MinCutSession, Problem
+    from repro_torch.distributed import solver as dsolver
+    from repro_torch.distributed import spmv
+
+    out = {}
+    # the plans of each schedule, built once and shared by its routes
+    t = time.perf_counter()
+    halo = spmv.build_halo_plan(inst, 1, labels=labels)
+    block = dsolver.build_halo_block_plan(halo, 128)
+    ell = spmv.build_halo_ell(halo)
+    out["halo_plans_s"] = time.perf_counter() - t
+    plans = {"halo_fused": (halo, block, ell), "halo_unfused": (halo, block),
+             "psum": None}
+    log(f"[sharded 1] halo plans at world one in {out['halo_plans_s']:.1f} s:"
+        f" nl {halo.nl}, copies {halo.heads.shape[1]}, ELL k {ell.k}, "
+        f"{block.nb} blocks of {block.bs}")
+    for route, (schedule, fuse, kernel) in SHARD_ROUTES.items():
+        rc = shard_cfg(cfg, fuse)
+        m, solver = sharded_solve(inst, rc, schedule, labels,
+                                  plans=plans[route])
+        m["kernels"] = shard_kernels_held(solver, rc.eps, seed,
+                                          f"[sharded 1] {route}")
+        del solver
+        held = dataclasses.replace(rc, eps=SHARD_HELD_EPS)
+        run = lambda use_pallas: sharded_solve(
+            inst, dataclasses.replace(held, use_pallas=use_pallas), schedule,
+            labels, plans=plans[route])[0]
+        torch.use_deterministic_algorithms(True)
+        try:
+            k, p = run(True), run(False)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        want = dict(NO_LAUNCHES, **{kernel: rc.n_irls})
+        rel = abs(k["cut"] - p["cut"]) / abs(p["cut"])
+        # signed: the fixed schedule takes all its CG steps in every IRLS
+        # iteration where the host loop stops at its tolerance, and lands
+        # on lower sweep cuts (0.37% lower at 32³ on the CPU), so only a
+        # cut ABOVE the host's is a fault
+        above = (m["cut"] - host_cut) / abs(host_cut)
+        log(f"[sharded 1] {route}: setup {m['setup_s']:.2f} s, solve "
+            f"{m['solve_s']:.2f} s ({m['pcg_steps']} CG steps), launches "
+            f"{m['launches']}; per CG step {m['per_pcg_step']}; cut "
+            f"{m['cut']!r}, {above:+.3e} of phase 4's host cut "
+            f"{host_cut!r} (tolerance +1e-3); at eps {SHARD_HELD_EPS} under "
+            f"deterministic algorithms: kernel route {k['cut']!r} in "
+            f"{k['solve_s']:.2f} s vs plain route {p['cut']!r} in "
+            f"{p['solve_s']:.2f} s (rel {rel:.2e}, tolerance 1e-5)")
+        if (m["launches"] != want or k["launches"] != want
+                or p["launches"] != NO_LAUNCHES):
+            raise AssertionError(f"sharded {route} launches {m['launches']} "
+                                 f"(plain {p['launches']}), want {want}")
+        if step_ops(m) != SHARD_STEP_OPS[schedule]:
+            raise AssertionError(f"sharded {route} collectives per step "
+                                 f"{m['per_pcg_step']}")
+        if not (m["finite"] and k["finite"] and p["finite"] and rel <= 1e-5
+                and above <= 1e-3):
+            raise AssertionError(f"sharded {route}: cut {m['cut']} (host "
+                                 f"{host_cut}); deterministic kernel route "
+                                 f"{k['cut']} vs plain {p['cut']} (rel {rel})")
+        out[route] = dict(measured=m, kernel=k, plain=p, rel_plain=rel,
+                          rel_host=above)
+        torch.cuda.empty_cache()
+    out["backend"] = str(dist.get_backend())
+    out["world_size"] = dist.get_world_size()
+    # 13b's instance at world one, the kernel route, rounded two-level:
+    # the world sizes sum the inner products in other orders, and at
+    # eps = 1e-6 the sweep's threshold follows that noise (2.4e-5 apart on
+    # a 32³ grid on the CPU) where the two-level cut does not
+    inst4 = segmentation_grid(SHARD_SIDE, seed)
+    labels4, p4 = box_labels(SHARD_SIDE)
+    cfg4 = shard_cfg(dataclasses.replace(cfg, n_blocks=p4))
+    t = time.perf_counter()
+    host4 = MinCutSession(Problem.build(inst4, n_blocks=p4, labels=labels4),
+                          cfg4, device="cuda").solve(rounding="two_level")
+    out["side48_host"] = dict(cut=host4.cut_value,
+                              seconds=time.perf_counter() - t)
+    out["side48"] = {}
+    for route, (schedule, comp) in SHARD_RANK_ROUTES.items():
+        if comp is None:
+            r = sharded_solve(inst4, cfg4, schedule, labels4,
+                              rounding="two_level")[0]
+            r["rel_host"] = abs(r["cut"] - host4.cut_value) / host4.cut_value
+            out["side48"][route] = r
+    log(f"[sharded 1] {SHARD_SIDE}³ at world one, two-level: host "
+        f"{host4.cut_value!r}; "
+        + ", ".join(f"{r} {x['cut']!r} (rel {x['rel_host']:.2e}, tolerance "
+                    f"1e-6) in {x['solve_s']:.2f} s + {x['rounding_s']:.2f} "
+                    f"s rounding" for r, x in out["side48"].items()))
+    if not all(x["finite"] and x["rel_host"] <= 1e-6
+               for x in out["side48"].values()):
+        raise AssertionError(f"sharded {SHARD_SIDE}³ two-level cuts vs host "
+                             f"{host4.cut_value}: {out['side48']}")
+    return out
+
+
+def _sharded_rank(rank: int, store: str, out_path: str, seed: int,
+                  cfg) -> None:
+    """One rank of 13b (a spawned process): gloo over CUDA tensors, every
+    rank on the one card."""
+    import datetime
+    import warnings
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.solver import Float32DivergenceWarning
+
+    warnings.simplefilter("ignore", Float32DivergenceWarning)
+    dist.init_process_group("gloo", store=dist.FileStore(store, SHARD_RANKS),
+                            rank=rank, world_size=SHARD_RANKS,
+                            timeout=datetime.timedelta(seconds=300))
+    torch.cuda.set_device(0)
+    # gloo must take CUDA tensors as they are: no copy to the CPU here
+    x = torch.full((3,), float(rank + 1), device="cuda")
+    dist.all_reduce(x)
+    parts = [torch.empty_like(x) for _ in range(SHARD_RANKS)]
+    dist.all_gather(parts, x)
+    if not (x.is_cuda and float(x[0]) == SHARD_RANKS * (SHARD_RANKS + 1) / 2
+            and [float(p[0]) for p in parts] == [10.0] * SHARD_RANKS):
+        raise AssertionError(f"gloo collectives on CUDA tensors: {x}, {parts}")
+    inst = segmentation_grid(SHARD_SIDE, seed)
+    labels, _ = box_labels(SHARD_SIDE)
+    out = {"backend": str(dist.get_backend())}
+    for route, (schedule, comp) in SHARD_RANK_ROUTES.items():
+        rounding = None if rank else "sweep" if comp else "two_level"
+        rec, solver = sharded_solve(inst, cfg, schedule, labels,
+                                    compression=comp, rounding=rounding)
+        rec["kernels"] = shard_kernels_held(solver, cfg.eps, seed + rank,
+                                            f"[sharded 4] rank {rank} "
+                                            f"{route}")
+        rec["plan"] = dict(nl=getattr(solver.plan, "nl", None),
+                           b_sh=getattr(solver.plan, "b_sh", None),
+                           n_pad=getattr(solver.plan, "n_pad", None))
+        out[route] = rec
+        del solver
+    if rank == 0:
+        Path(out_path).write_text(json.dumps(out))
+    dist.destroy_process_group()
+
+
+def sharded_ranks_phase(cfg, world_one: dict, seed: int, out_dir: Path):
+    """Phase 13b: a world of four ranks on the one card at 48³ (spawned
+    processes, gloo over CUDA tensors: NCCL refuses two ranks on one
+    device), both schedules and the int8 halo; cuts against 13a's world
+    one (rel 1e-5), collectives per CG step as in the CPU tests, each
+    rank's kernels held at its shard's shapes."""
+    import multiprocessing as mp
+    import os
+    import tempfile
+
+    _, p4 = box_labels(SHARD_SIDE)
+    cfg4 = shard_cfg(dataclasses.replace(cfg, n_blocks=p4))
+    ctx = mp.get_context("spawn")
+    out_path = out_dir / "chip_smoke_sharded4.json"
+    out_path.unlink(missing_ok=True)
+    env_before = os.environ.get("OMP_NUM_THREADS")
+    os.environ["OMP_NUM_THREADS"] = "1"      # four ranks share the host
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=_sharded_rank,
+                             args=(r, os.path.join(tmp, "store"),
+                                   str(out_path), seed, cfg4))
+                 for r in range(SHARD_RANKS)]
+        for p in procs:
+            p.start()
+        deadline = time.perf_counter() + 600
+        for p in procs:
+            p.join(max(1.0, deadline - time.perf_counter()))
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+    if env_before is None:
+        os.environ.pop("OMP_NUM_THREADS")
+    else:
+        os.environ["OMP_NUM_THREADS"] = env_before
+    wall = time.perf_counter() - t
+    codes = [p.exitcode for p in procs]
+    if alive or any(c != 0 for c in codes):
+        raise AssertionError(f"sharded ranks exited {codes} "
+                             f"({len(alive)} killed at the deadline)")
+    got = json.loads(out_path.read_text())
+    for route, (schedule, comp) in SHARD_RANK_ROUTES.items():
+        r = got[route]
+        kernel = ("fused_ell_sweep" if schedule == "halo" else
+                  "edge_reweight")
+        want = dict(NO_LAUNCHES, **{kernel: cfg4.n_irls})
+        ops_want = SHARD_STEP_OPS["halo_int8" if comp else schedule]
+        log(f"[sharded 4] {route}: setup {r['setup_s']:.2f} s, solve "
+            f"{r['solve_s']:.2f} s ({r['pcg_steps']} CG steps), launches "
+            f"{r['launches']}, per CG step {r['per_pcg_step']}, plan "
+            f"{r['plan']}, cut {r['cut']!r}")
+        if r["launches"] != want or step_ops(r) != ops_want:
+            raise AssertionError(f"sharded 4 {route}: launches "
+                                 f"{r['launches']}, per step "
+                                 f"{r['per_pcg_step']}")
+        if comp is None:
+            one = world_one["side48"][route]["cut"]
+            rel = abs(r["cut"] - one) / abs(one)
+            r["rel_world_one"] = rel
+            log(f"[sharded 4] {route}: cut vs world one {one!r}: rel "
+                f"{rel:.2e} (tolerance 1e-5)")
+            if not (r["finite"] and rel <= 1e-5):
+                raise AssertionError(f"sharded 4 {route}: cut {r['cut']} vs "
+                                     f"world one {one} (rel {rel})")
+    b_f = got["halo_fused"]["per_pcg_step"]["bytes"]
+    b_8 = got["halo_int8"]["per_pcg_step"]["bytes"]
+    b_p = got["psum"]["per_pcg_step"]["bytes"]
+    log(f"[sharded 4] bytes per CG step a rank: halo {b_f:.0f}, int8 halo "
+        f"{b_8:.0f}, psum {b_p:.0f}; gloo stages the CUDA tensors through "
+        f"the host; {wall:.1f} s for the four ranks")
+    if not (b_8 < 0.4 * b_f and b_f < 0.7 * b_p and got["halo_int8"]["finite"]):
+        raise AssertionError(f"sharded 4 bytes per step: halo {b_f}, int8 "
+                             f"{b_8}, psum {b_p}")
+    got["wall_s"] = wall
+    return got
+
+
+def sharded_cli_phase(out_dir: Path):
+    """Phase 13c: ``launch.solve --backend sharded`` as a subprocess in a
+    world of one on the card."""
+    import os
+
+    path = out_dir / "chip_smoke_solve_sharded.json"
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.solve", "--family",
+         "grid", "--side", "48", "--irls", "10", "--backend", "sharded",
+         "--json-out", str(path)], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t
+    (out_dir / "chip_smoke_solve_sharded.log").write_text(proc.stdout
+                                                          + proc.stderr)
+    if proc.returncode != 0:
+        raise AssertionError(f"sharded solve CLI exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    s = json.loads(path.read_text())
+    log(f"[sharded cli] {secs:.1f} s: backend {s['backend']}, cut "
+        f"{s['cut_two_level']!r} vs exact {s['cut_exact']!r}: "
+        f"delta_two_level {s['delta_two_level']:.2e} (tolerance 1e-3), IRLS "
+        f"{s['t_irls']:.2f} s")
+    if s["backend"] != "sharded" or not abs(s["delta_two_level"]) <= 1e-3:
+        raise AssertionError(f"sharded solve CLI: {s}")
+    return dict(seconds=secs, json=s)
+
+
+def sharded_phase(inst, labels, cfg, host_cut: float, seed: int,
+                  out_dir: Path) -> dict:
+    """Phase 13: 13a, 13b and 13c; the world of one is taken down after
+    13a, before the ranks of 13b start.  The solver's float32 sentinel
+    warns on every solve here (eps = 1e-6 is below float32's reach at
+    these weights, as on the host path), so its warning is muted."""
+    import warnings
+
+    from repro_torch.distributed.collectives import release_world
+    from repro_torch.distributed.solver import Float32DivergenceWarning
+
+    t = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", Float32DivergenceWarning)
+        out = {"world_one": sharded_world_one_phase(inst, labels, cfg,
+                                                    host_cut, seed)}
+    release_world()
+    out["ranks"] = sharded_ranks_phase(cfg, out["world_one"], seed, out_dir)
+    out["cli"] = sharded_cli_phase(out_dir)
+    out["seconds"] = time.perf_counter() - t
+    log(f"[sharded] phase 13 in {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--side", type=int, default=96)
@@ -2471,6 +2893,15 @@ def main(argv=None) -> int:
         ctx, args.seed, report["cuttree"]["sink"], out_dir)
     report["cuttree_s"] = time.perf_counter() - t
     log(f"[cuttree] phase 12 in {report['cuttree_s']:.1f} s")
+    torch.cuda.empty_cache()
+
+    # -- 13. the sharded solver ------------------------------------------------
+    report["sharded"] = sharded_phase(inst, labels, cfg, cut.cut_value,
+                                      args.seed, out_dir)
+    for route in SHARD_ROUTES:
+        report["sharded_" + route] = {
+            "launches": report["sharded"]["world_one"][route]["measured"][
+                "launches"]}
     for path, name in (("delta_host", "ell_spmv"),
                        ("delta_host", "fused_ell_sweep"),
                        ("delta_host", "block_diag_matvec"),
@@ -2478,7 +2909,10 @@ def main(argv=None) -> int:
                        ("delta_serve", "fused_ell_sweep"),
                        ("presolve", "ell_spmv"),
                        ("presolve", "fused_ell_sweep"),
-                       ("cuttree", "edge_reweight")):
+                       ("cuttree", "edge_reweight"),
+                       ("sharded_halo_fused", "fused_ell_sweep"),
+                       ("sharded_halo_unfused", "edge_reweight"),
+                       ("sharded_psum", "edge_reweight")):
         if report[path]["launches"][name] == 0:
             raise AssertionError(f"{name} was not launched on the {path} path")
 
@@ -2488,7 +2922,9 @@ def main(argv=None) -> int:
                      "delta_host": report["delta_host"]["launches"],
                      "delta_serve": report["delta_serve"]["launches"],
                      "presolve": report["presolve"]["launches"],
-                     "cuttree": report["cuttree"]["launches"]}
+                     "cuttree": report["cuttree"]["launches"],
+                     **{"sharded_" + r: report["sharded_" + r]["launches"]
+                        for r in SHARD_ROUTES}}
     for name in KERNELS:
         if path_launches[LAUNCH_PATH[name]][name] == 0:
             raise AssertionError(f"{name} was not launched on its path")

@@ -22,7 +22,10 @@ That is one device-to-host synchronisation per CG step.
 The matvec, the preconditioner and the inner products are closures
 (``dot``/``dot2``, default ``lane_dot``), so the same loops serve the ELL
 kernels, the COO layout and dense oracles.  ``dot2(r, z) → (r·z, r·r)``
-lets a caller fuse both reductions of a step into one.
+lets a caller fuse both reductions of a step into one.  ``step_scope``
+(default none) is a context manager factory entered around each CG step of
+``pcg_masked`` and ``pcg_fixed_iters``: the sharded solver counts the
+collectives of a step under it (``distributed.collectives``).
 
 Batches: ``pcg_masked`` and ``pcg_fixed_iters`` also take a batch of B
 independent systems, with ``b`` and the iterates of shape (B, n) and every
@@ -35,6 +38,7 @@ reads one bool per CG step for the whole batch.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, NamedTuple, Optional
 
@@ -134,7 +138,8 @@ def pcg(matvec: Callable[[torch.Tensor], torch.Tensor],
 
 
 def pcg_masked(matvec, b, x0=None, precond=None, tol=1e-3,
-               max_iters: int = 50, dot=None, dot2=None) -> PCGResult:
+               max_iters: int = 50, dot=None, dot2=None,
+               step_scope=contextlib.nullcontext) -> PCGResult:
     """PCG with early exit and explicitly masked updates (no history).
 
     Same update rule as ``pcg``; every state update is gated on the lane's
@@ -162,26 +167,28 @@ def pcg_masked(matvec, b, x0=None, precond=None, tol=1e-3,
     # every lane still active has taken every step so far, so the shared
     # step count is the cap of each lane's own count
     while step < max_iters and bool((rr > tol2).any()):
-        active = rr > tol2
-        Ap = matvec(p)
-        pAp = dot(p, Ap)
-        alpha = torch.where(active, rz / _nonzero(pAp), zero)
-        x = x + alpha[..., None] * p
-        r = r - alpha[..., None] * Ap
-        z = precond(r)
-        rz_new, rr_new = dot2(r, z)
-        beta = rz_new / _nonzero(rz)
-        p = torch.where(active[..., None], z + beta[..., None] * p, p)
-        rz = torch.where(active, rz_new, rz)
-        rr = torch.where(active, rr_new, rr)
-        it = it + active.to(torch.int32)
+        with step_scope():
+            active = rr > tol2
+            Ap = matvec(p)
+            pAp = dot(p, Ap)
+            alpha = torch.where(active, rz / _nonzero(pAp), zero)
+            x = x + alpha[..., None] * p
+            r = r - alpha[..., None] * Ap
+            z = precond(r)
+            rz_new, rr_new = dot2(r, z)
+            beta = rz_new / _nonzero(rz)
+            p = torch.where(active[..., None], z + beta[..., None] * p, p)
+            rz = torch.where(active, rz_new, rz)
+            rr = torch.where(active, rr_new, rr)
+            it = it + active.to(torch.int32)
         step += 1
     return PCGResult(x=x, iters=it, rel_res=torch.sqrt(rr / bb),
                      history=torch.zeros((1,), dtype=b.dtype, device=b.device))
 
 
 def pcg_fixed_iters(matvec, b, x0=None, precond=None, n_iters: int = 50,
-                    record_history: bool = True, dot=None, dot2=None):
+                    record_history: bool = True, dot=None, dot2=None,
+                    step_scope=contextlib.nullcontext):
     """PCG with a fixed iteration count (no stopping test, no host sync).
     ``record_history=False`` drops the per-step residual-norm reduction.
     On a batch, ``rel_res`` holds one value per lane and ``history`` is
@@ -196,20 +203,21 @@ def pcg_fixed_iters(matvec, b, x0=None, precond=None, n_iters: int = 50,
     rz = dot(r, z)
     res_hist = []
     for _ in range(n_iters):
-        Ap = matvec(p)
-        pAp = dot(p, Ap)
-        alpha = rz / _nonzero(pAp)
-        x = x + alpha[..., None] * p
-        r = r - alpha[..., None] * Ap
-        z = precond(r)
-        if record_history:
-            rz_new, rr = dot2(r, z)
-            res_hist.append(torch.sqrt(torch.clamp(rr, min=0.0)))
-        else:
-            rz_new = dot(r, z)
-        beta = rz_new / _nonzero(rz)
-        p = z + beta[..., None] * p
-        rz = rz_new
+        with step_scope():
+            Ap = matvec(p)
+            pAp = dot(p, Ap)
+            alpha = rz / _nonzero(pAp)
+            x = x + alpha[..., None] * p
+            r = r - alpha[..., None] * Ap
+            z = precond(r)
+            if record_history:
+                rz_new, rr = dot2(r, z)
+                res_hist.append(torch.sqrt(torch.clamp(rr, min=0.0)))
+            else:
+                rz_new = dot(r, z)
+            beta = rz_new / _nonzero(rz)
+            p = z + beta[..., None] * p
+            rz = rz_new
     bb = dot(b, b)
     b_norm = torch.sqrt(torch.clamp(bb, min=0.0))
     b_norm = torch.where(b_norm > 0, b_norm, torch.ones_like(b_norm))

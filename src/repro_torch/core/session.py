@@ -9,23 +9,30 @@ PCG → rounding) has two kinds of state:
 * **numeric** — edge/terminal weights, voltages, the per-iteration
   reweighted systems.  Fresh per solve (``MinCutSession.solve``).
 
-Two backends run on the session's device:
+Three backends run on the session's device:
 
-  backend     driver                                    solve_batch
-  ─────────   ───────────────────────────────────────   ───────────
-  "host"      ``run_host_loop``: one IRLS iteration     no
+  backend     driver                                 warm_from  solve_batch
+  ─────────   ────────────────────────────────────   ─────────  ───────────
+  "host"      ``run_host_loop``: one IRLS iteration  yes        no
               per call, PCG stopping on tolerance,
               full diagnostics
-  "scanned"   ``make_scanned_program``: all T           yes (a batch of
-              iterations on the fixed or masked         B lanes in one
-              adaptive schedule                         program)
+  "scanned"   ``make_scanned_program``: all T        yes        yes (B lanes
+              iterations on the fixed or masked                 in one
+              adaptive schedule                                 program)
+  "sharded"   ``distributed.solver.ShardedSolver``:  no         no (a batch
+              the halo or psum schedule over the                runs the
+              ranks of a ``torch.distributed``                  scanned
+              group (§3.3)                                      program)
 
-Both run presolve (``presolve=True``: exact kernelization, the kernel
+All three run presolve (``presolve=True``: exact kernelization, the kernel
 solved on the same backend and device, the result lifted back with a cut
-certificate) and delta staging (``delta_key=``: a keyed weight sequence
-restages only the changed slots of the fused-ELL weight table).  The JAX
-package's ``"sharded"`` backend is not ported yet (ROADMAP queue 1,
-``distributed/``) and raises ``NotImplementedError``.
+certificate); host and scanned run delta staging (``delta_key=``: a keyed
+weight sequence restages only the changed slots of the fused-ELL weight
+table), the sharded backend its own incremental plan refill.  A sharded
+session runs on every rank of its group (None: the default group, or a
+world of one that the solver initializes and that stays the default group
+until ``distributed.collectives.release_world()``), and each rank gets the
+same result.
 """
 from __future__ import annotations
 
@@ -383,14 +390,17 @@ class MinCutSession:
     result's voltages; ``solve_batch`` solves many weight assignments of the
     topology in one batched scanned program.  Safe to share between the
     serving engine's worker threads: every cache build runs once, under a
-    lock per key."""
+    lock per key.
 
-    BACKENDS = ("host", "scanned")
-    _LATER = {"sharded": "ROADMAP queue 1, distributed/"}
+    ``schedule`` ("halo" or "psum"), ``precond_bs`` and ``group`` configure
+    the sharded backend (``distributed.solver.ShardedSolver``)."""
+
+    BACKENDS = ("host", "scanned", "sharded")
 
     def __init__(self, problem: Union[Problem, STInstance],
                  cfg: IRLSConfig = IRLSConfig(), backend: str = "host",
-                 device="cuda"):
+                 device="cuda", schedule: str = "halo",
+                 precond_bs: int = 128, group=None):
         if isinstance(problem, STInstance):
             n_blocks = cfg.n_blocks if cfg.precond == "block_jacobi" else 1
             problem = Problem.build(problem, n_blocks=n_blocks)
@@ -399,7 +409,12 @@ class MinCutSession:
         self._check_backend(backend)
         self.backend = backend
         self.device = torch.device(device)
+        self.schedule = schedule
+        self.precond_bs = precond_bs
+        self.group = group
         self._steppers: Dict[tuple, object] = {}
+        # sharded: whether each solver's plans hold override weights
+        self._sharded_weights: Dict[tuple, bool] = {}
         # _cache_lock guards the lock table and the LRUs below
         self._cache_lock = threading.Lock()
         self._compile_locks: Dict[tuple, threading.Lock] = {}
@@ -423,10 +438,6 @@ class MinCutSession:
         self.telemetry = TelemetryAggregator()
 
     def _check_backend(self, backend: str) -> None:
-        if backend in self._LATER:
-            raise NotImplementedError(
-                f"backend {backend!r} is not ported yet: "
-                f"{self._LATER[backend]}")
         if backend not in self.BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; "
                              f"known: {self.BACKENDS}")
@@ -467,6 +478,10 @@ class MinCutSession:
         if presolve:
             return self._solve_presolve(weights, warm_from, rounding,
                                         backend, cfg, delta_key=delta_key)
+        if warm_from is not None and backend == "sharded":
+            raise ValueError("warm_from is only supported on the host and "
+                             "scanned backends (sharded runs a fixed cold "
+                             "schedule)")
         trivial = self._check_connectivity(weights, rounding, backend)
         if trivial is not None:
             return trivial
@@ -488,6 +503,9 @@ class MinCutSession:
                     v, diag = self._solve_host(cfg, weights, warm_from,
                                                collect_voltages, timings,
                                                c_ell=c_ell)
+                elif backend == "sharded":
+                    v, rels, pcg_iters = self._solve_sharded(cfg, weights,
+                                                             timings)
                 else:
                     v, rels, pcg_iters = self._solve_scanned(
                         cfg, weights, timings, warm_from, c_ell=c_ell)
@@ -505,13 +523,22 @@ class MinCutSession:
                         device=self.device)
                 timings["rounding"] = time.perf_counter() - t1
             timings["total"] = time.perf_counter() - t0
+        clamped = sharded_refill = None
+        if backend == "sharded":
+            solver = self._steppers.get((cfg, "sharded", self.schedule))
+            clamped = solver.last_clamped
+            sharded_refill = dict(solver.delta_stats)
         tel = build_solve_telemetry(
             cfg, backend, self.problem.instance.n,
             self.problem.instance.graph.m, timings, pcg_iters=pcg_iters,
             residuals=rels, diagnostics=diag,
-            warm_start=warm_from is not None)
+            warm_start=(None if backend == "sharded"
+                        else warm_from is not None),
+            clamped_reweights=clamped)
         if delta_tel is not None:
             tel["delta"] = delta_tel
+        if sharded_refill is not None:
+            tel["sharded_refill"] = sharded_refill
         self.telemetry.add(tel)
         return SolveResult(voltages=v, cut=cut, diagnostics=diag,
                            residuals=rels, timings=timings, backend=backend,
@@ -798,7 +825,9 @@ class MinCutSession:
                 if sess is None:
                     sess = MinCutSession(
                         Problem.build(kernel.instance, n_blocks=nb),
-                        cfg=kcfg, backend=self.backend, device=self.device)
+                        cfg=kcfg, backend=self.backend, device=self.device,
+                        schedule=self.schedule, precond_bs=self.precond_bs,
+                        group=self.group)
                     self._kernel_sessions[key] = sess
         return sess, kcfg
 
@@ -985,7 +1014,7 @@ class MinCutSession:
         m = int(np.asarray(w.c).shape[0])
         c64 = np.array(w.c, dtype=np.float64)
         dtype = torch_dtype(cfg)
-        fused_ell = (backend in self.BACKENDS and cfg.layout == "ell"
+        fused_ell = (backend in ("host", "scanned") and cfg.layout == "ell"
                      and cfg.fuse_edge_sweep)
         with self._cache_lock:
             entry = self._delta.get(delta_key)
@@ -1085,3 +1114,39 @@ class MinCutSession:
         v, rels, iters = run(*args)
         return (prob.to_original(v[0].cpu().numpy()), rels[0].cpu().numpy(),
                 iters[0].cpu().numpy())
+
+    def _solve_sharded(self, cfg, weights, timings):
+        from ..distributed.solver import ShardedSolver
+
+        prob = self.problem
+        key = (cfg, "sharded", self.schedule)
+        # one lock covers build + update_weights + solve: the solver's plan
+        # weight arrays are mutable state shared by every caller of this
+        # (cfg, schedule) solver, so an interleaved update/solve pair from
+        # two serving workers would solve under the wrong weights
+        with self._lock_for(key):
+            solver = self._steppers.get(key)
+            t = time.perf_counter()
+            if solver is None:
+                labels = prob.labels if prob.n_blocks > 1 else None
+                solver = ShardedSolver(prob.instance_with(weights), cfg,
+                                       group=self.group,
+                                       schedule=self.schedule,
+                                       labels=labels,
+                                       precond_bs=self.precond_bs,
+                                       device=self.device)
+                self._steppers[key] = solver
+                self._sharded_weights[key] = weights is not None
+                timings["setup"] = time.perf_counter() - t
+            elif weights is not None or self._sharded_weights.get(key):
+                # same solver, refreshed plan weight arrays.  Refill
+                # whenever an override is in play (never trust object
+                # identity — callers may mutate weight arrays in place) and
+                # once more when dropping back to the Problem's own weights
+                solver.update_weights(prob.instance_with(weights))
+                self._sharded_weights[key] = weights is not None
+                timings["setup"] = time.perf_counter() - t
+            else:
+                timings["setup"] = 0.0
+            v, rels, iters = solver.solve()
+        return np.asarray(v), np.asarray(rels), np.asarray(iters)

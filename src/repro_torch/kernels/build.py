@@ -11,10 +11,19 @@ name carries a hash of its source, every header in ``csrc/`` and its flags,
 so an edited source or header never loads a stale build.  Builds happen at first use (``load``), or
 all at once and in parallel (``build_all``); nothing is built at import.
 The build directory is ``build/kernels`` at the root of the checkout.
+
+Several processes may load a kernel for the first time at once (the ranks
+of a sharded solve): ``build_all`` holds an exclusive ``flock`` on
+``build/kernels/.lock`` while it checks and compiles, so one process
+compiles and the others find its library, and nvcc writes to a temporary
+name that ``os.replace`` moves into place, so no process loads half a
+library.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -71,14 +80,31 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """Exclusive lock on the build directory, across processes."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     """Compile every named kernel that has no current build, one nvcc per
-    source, all started together.  Returns ``{name: {"seconds", "log"}}``
-    for the sources compiled (``log`` is nvcc's output: ptxas register and
-    shared-memory use, kept beside the library for ``build_log``).  Raises
-    with the compiler's output on a failure."""
+    source, all started together, under the build directory's lock.
+    Returns ``{name: {"seconds", "log"}}`` for the sources compiled
+    (``log`` is nvcc's output: ptxas register and shared-memory use, kept
+    beside the library for ``build_log``).  Raises with the compiler's
+    output on a failure."""
     names = list(SOURCES if names is None else names)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with _build_lock():
+        return _compile(names)
+
+
+def _compile(names) -> Dict[str, dict]:
     procs = {}
     t0 = time.perf_counter()
     for name in names:

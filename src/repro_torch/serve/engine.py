@@ -45,9 +45,12 @@ errors raised during batch execution (e.g. a cfg whose partition geometry
 doesn't match the server's) land on every future of that batch.
 
 The JAX package's ``repro.serve.engine`` over the port's session, on the
-server's ``device`` (default ``"cuda"``).  The sharded backend is not
-ported yet (ROADMAP queue 1, ``distributed/``) and raises
-``NotImplementedError``.
+server's ``device`` (default ``"cuda"``).  The server has no sharded
+backend yet and raises ``NotImplementedError``: serving over the ranks of
+a group needs rank 0 to serve while the other ranks follow a broadcast
+loop, which the single-controller JAX server has no counterpart for
+(ROADMAP queue 1, item 8).  ``MinCutSession(backend="sharded")`` solves
+over ranks.
 """
 from __future__ import annotations
 
@@ -84,15 +87,16 @@ def default_workers(backend: str) -> int:
     host/scanned — a small pool of host threads: while one worker waits on
     the device (PyTorch releases the GIL there) the others assemble and
     dispatch further batches.  sharded (one worker per device in the JAX
-    package) is not ported yet.
+    package) is not served yet (``_SHARDED``).
     """
     if backend == "sharded":
         raise NotImplementedError(_SHARDED)
     return 4
 
 
-_SHARDED = ("the sharded backend is not ported yet: ROADMAP queue 1, "
-            "distributed/")
+_SHARDED = ("MinCutServer has no sharded backend yet: ROADMAP queue 1, "
+            "item 8 (serving over distributed/ ranks: rank 0 serves, the "
+            "other ranks follow a broadcast loop)")
 
 
 @dataclasses.dataclass

@@ -746,3 +746,51 @@ def test_cut_tree_through_edge_reweight_matches_plain_route(cuda):
     np.testing.assert_array_equal(a.weight, b.weight)
     np.testing.assert_array_equal(a.sides, b.sides)
     assert a.meta["order"] == b.meta["order"]
+
+
+# -- the sharded solver at world one (NCCL) -----------------------------------
+
+@pytest.mark.parametrize("schedule,fuse,kernel", [
+    ("halo", True, "fused_ell_sweep"), ("halo", False, "edge_reweight"),
+    ("psum", True, "edge_reweight")])
+def test_sharded_world_one_kernel_route_matches_plain_route(
+        cuda, schedule, fuse, kernel):
+    """``ShardedSolver`` in a world of one over NCCL, under deterministic
+    algorithms: the kernel route (``use_pallas``) launches its kernel once
+    per IRLS iteration on the shard's own tensors and reaches the plain
+    route's cut; ``edge_reweight`` is bit-equal to its plain version, so
+    its routes give the same voltages bit for bit."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch.core import IRLSConfig, two_level
+    from repro_torch.distributed.solver import ShardedSolver
+    from repro_torch.graphs import generators as gen
+
+    inst = gen.segmentation_instance(gen.grid_2d(24, 24, seed=3), (24, 24),
+                                     seed=4)
+    cfg = IRLSConfig(n_irls=8, pcg_max_iters=40, fuse_edge_sweep=fuse,
+                     use_pallas=True)
+    out = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for use_pallas in (True, False):
+            before = dict(ops.launches)
+            s = ShardedSolver(inst, dataclasses.replace(cfg,
+                                                        use_pallas=use_pallas),
+                              schedule=schedule, precond_bs=64, device=cuda)
+            v, _, _ = s.solve()
+            torch.cuda.synchronize()
+            launched = {k: ops.launches[k] - before[k] for k in before}
+            want = {k: 0 for k in before}
+            if use_pallas:
+                want[kernel] = cfg.n_irls
+            assert launched == want
+            out[use_pallas] = (v, two_level(inst, v).cut_value)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert dist.get_world_size() == 1
+    assert "nccl" in str(dist.get_backend()).lower()
+    assert out[True][1] == pytest.approx(out[False][1], rel=1e-5)
+    if kernel == "edge_reweight":
+        np.testing.assert_array_equal(out[True][0], out[False][0])

@@ -1,0 +1,698 @@
+"""The port's sharded solver in gloo ranks against the JAX package's.
+
+``repro_torch.distributed`` runs one process per rank over
+``torch.distributed`` (gloo on the CPU); the JAX package runs one SPMD
+program over ``--xla_force_host_platform_device_count`` devices.  Every
+job below is a subprocess with a timeout: the port's ranks rendezvous
+through a ``FileStore`` under a temporary directory (several test workers
+run at once, so no fixed port), each ``init_process_group`` has a timeout,
+and a dead rank fails its job instead of hanging the suite.  The jobs all
+start when the module's first test asks for one and run side by side;
+each test waits for the jobs it reads.
+
+Checks mirror ``tests/test_distributed.py`` and ``tests/test_halo_plan.py``:
+both schedules at Dinic, port against reference (fractional cut,
+voltages, adaptive PCG spend), the session backend's refills, the
+reweight clamp, the collective census (halo against psum bytes, int8,
+fixed against adaptive per CG step, one all-reduce for ``dot2``), the
+fused sweep against the unfused build, non-dividing n, empty boundary
+sets, a world of one against the scanned backend, the solve CLI under
+``torchrun`` against the reference CLI, and the failure modes.
+"""
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import textwrap
+import time
+
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
+SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
+
+# every rank and reference job: a single intra-op thread (several processes
+# share the cores, and gloo's collectives slow down under oversubscription)
+_ENV = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1",
+            JAX_PLATFORMS="cpu", PYTHONWARNINGS="ignore")
+JOB_TIMEOUT = 400
+
+_COMMON = """
+import json, os, sys, warnings
+import numpy as np
+warnings.simplefilter("ignore")
+
+def frac_cut(inst, v):
+    g = inst.graph
+    v = np.asarray(v, dtype=np.float64)
+    z = np.asarray(g.weight, np.float64) * (v[np.asarray(g.src)]
+                                            - v[np.asarray(g.dst)])
+    return float(np.abs(z).sum()
+                 + np.abs(np.asarray(inst.s_weight) * (1 - v)).sum()
+                 + np.abs(np.asarray(inst.t_weight) * v).sum())
+
+def grid(side, seed, side2=None):
+    side2 = side2 or side
+    g = gen.grid_2d(side, side2, seed=seed)
+    return gen.segmentation_instance(g, (side, side2), seed=seed + 1)
+
+def emit(obj):
+    if RANK == 0:
+        with open(os.environ["OUT"], "w") as f:
+            json.dump(obj, f)
+"""
+
+_RANK = """
+import datetime
+import torch
+import torch.distributed as dist
+torch.set_num_threads(1)
+RANK, P = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+dist.init_process_group("gloo", store=dist.FileStore(os.environ["STORE"], P),
+                        rank=RANK, world_size=P,
+                        timeout=datetime.timedelta(seconds=120))
+from repro_torch.graphs import generators as gen, partition as gp
+from repro_torch.core import (IRLSConfig, MinCutSession, Problem, max_flow,
+                              two_level)
+from repro_torch.distributed.solver import ShardedSolver
+DEV = dict(device="cpu")
+"""
+
+_REF = """
+RANK = 0
+from repro.graphs import generators as gen, partition as gp
+from repro.core import IRLSConfig, max_flow, two_level
+from repro.distributed.solver import ShardedSolver
+DEV = {}
+"""
+
+# the parity runs: the 20x20 segmentation grid at p = 4, both schedules,
+# the fixed and the adaptive schedule, the same labels in both packages.
+# At eps = 1e-6 float32 PCG on this grid is chaotic past convergence: the
+# reference's own halo and psum voltages differ by 0.19 there (ROADMAP
+# queue 3), so the packages are held against each other at eps = 1e-3, as
+# tests/test_torch_scanned.py holds the grid
+_PARITY = """
+inst = grid(20, 7)
+labels = gp.partition_kway(inst.graph, 4)
+out = {"labels": labels.tolist()}
+for sched in ("halo", "psum"):
+    for tag, cfg in (("fixed", IRLSConfig(n_irls=20, pcg_max_iters=80,
+                                          eps=1e-3)),
+                     ("adaptive", IRLSConfig(n_irls=20, pcg_max_iters=80,
+                                             eps=1e-3, irls_tol=1e-3,
+                                             adaptive_tol=True))):
+        s = ShardedSolver(inst, cfg, schedule=sched, labels=labels,
+                          precond_bs=64, **DEV)
+        v, rels, iters = s.solve()
+        r = {"v": np.asarray(v, np.float64).tolist(),
+             "cut": two_level(inst, v).cut_value, "frac": frac_cut(inst, v),
+             "iters": np.asarray(iters).tolist()}
+        if hasattr(s, "collective_stats") and DEV:
+            r["stats"] = s.collective_stats()
+        out[sched + "_" + tag] = r
+"""
+
+# the reference's own check at its config: the two-level cut at Dinic
+_PORT4 = _PARITY + """
+out["exact"] = max_flow(inst).value
+for sched in ("halo", "psum"):
+    s = ShardedSolver(inst, IRLSConfig(n_irls=20, pcg_max_iters=80),
+                      schedule=sched, precond_bs=64, **DEV)
+    v, _, _ = s.solve()
+    out[sched + "_dinic"] = two_level(inst, v).cut_value
+emit(out)
+"""
+
+_PORT4_MORE = """
+out = {}
+# the float32 mitigation at the divergent regime (eps 1e-8)
+small = grid(16, 7)
+out["clamp_exact"] = max_flow(small).value
+for sched in ("halo", "psum"):
+    cfg = IRLSConfig(n_irls=15, pcg_max_iters=60, eps=1e-8,
+                     reweight_clamp=True)
+    s = ShardedSolver(small, cfg, schedule=sched, precond_bs=64, **DEV)
+    from repro_torch.distributed.solver import Float32DivergenceWarning
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        v, _, _ = s.solve()
+    out["clamp_" + sched] = {
+        "cut": two_level(small, v).cut_value, "hits": s.last_clamped,
+        "warned": any(issubclass(x.category, Float32DivergenceWarning)
+                      for x in caught)}
+warnings.simplefilter("ignore")
+
+# int8 halo exchange: bytes per CG step and a valid cut
+wide = grid(24, 9)
+for comp in (None, "int8"):
+    s = ShardedSolver(wide, IRLSConfig(n_irls=6, pcg_max_iters=30),
+                      schedule="halo", precond_bs=32,
+                      halo_compression=comp, **DEV)
+    v, _, _ = s.solve()
+    out["int8_" + str(comp)] = {
+        "per_step": s.collective_stats()["per_pcg_step"],
+        "cut": two_level(wide, v).cut_value,
+        "valid": bool(v.min() > -1 and v.max() < 2)}
+
+# n = 399 on 4 ranks: a padded last shard
+odd = grid(19, 3, 21)
+s = ShardedSolver(odd, IRLSConfig(n_irls=20, pcg_max_iters=80),
+                  schedule="halo", precond_bs=32, **DEV)
+v, _, _ = s.solve()
+out["nondividing"] = {"cut": two_level(odd, v).cut_value,
+                      "exact": max_flow(odd).value, "nl": s.plan.nl,
+                      "n": odd.n}
+emit(out)
+"""
+
+# p = 8: the halo schedule's bytes per CG step against psum's (32x32)
+_PORT8 = """
+inst = grid(32, 9)
+out = {}
+for sched in ("halo", "psum"):
+    s = ShardedSolver(inst, IRLSConfig(n_irls=3, pcg_max_iters=10),
+                      schedule=sched, precond_bs=32, **DEV)
+    s.solve()
+    out[sched] = s.collective_stats()
+emit(out)
+"""
+
+# p = 2: shards with empty boundary sets against the port's host backend;
+# the session backend's refills; the fused halo sweep against the unfused
+# build
+_PORT2 = """
+from repro_torch.graphs.structures import EdgeList, STInstance
+g1, g2 = gen.grid_2d(4, 4, seed=5), gen.grid_2d(4, 4, seed=6)
+n = g1.n + g2.n
+src = np.concatenate([np.asarray(g1.src), np.asarray(g2.src) + g1.n])
+dst = np.concatenate([np.asarray(g1.dst), np.asarray(g2.dst) + g1.n])
+w = np.concatenate([np.asarray(g1.weight), np.asarray(g2.weight)])
+rng = np.random.default_rng(7)
+inst = STInstance(graph=EdgeList(src=src, dst=dst, weight=w, n=n),
+                  s_weight=rng.uniform(0.1, 1.0, n),
+                  t_weight=rng.uniform(0.1, 1.0, n))
+labels = np.asarray([0] * 16 + [1] * 16)
+out = {}
+for tag, cfg in (("fixed", IRLSConfig(n_irls=15, pcg_max_iters=60,
+                                      precond="jacobi", n_blocks=1)),
+                 ("adaptive", IRLSConfig(n_irls=15, pcg_max_iters=60,
+                                         precond="jacobi", n_blocks=1,
+                                         irls_tol=1e-3, adaptive_tol=True))):
+    host = MinCutSession(Problem.build(inst, n_blocks=1), cfg,
+                         backend="host", **DEV).solve(cfg=cfg)
+    sess = MinCutSession(Problem.build(inst, n_blocks=2, labels=labels),
+                         cfg, backend="sharded", precond_bs=16, **DEV)
+    shard = sess.solve(cfg=cfg)
+    solver = sess._steppers[(cfg, "sharded", "halo")]
+    out[tag] = {"host": host.cut_value, "sharded": shard.cut_value,
+                "b_sh": solver.plan.b_sh,
+                "exports": int(np.count_nonzero(solver.plan.export))}
+inst20 = grid(20, 7)
+# the session backend: a cold build, a dense refill, a sparse delta refill
+sess = MinCutSession(Problem.build(inst20, n_blocks=8),
+                     IRLSConfig(n_irls=20, pcg_max_iters=80),
+                     backend="sharded", precond_bs=64, **DEV)
+w = np.asarray(inst20.graph.weight, np.float64) * 1.3
+drift = w.copy()
+drift[::50] *= 1.2
+sess_out = []
+for weights in (None, (w, inst20.s_weight, inst20.t_weight),
+                (drift, inst20.s_weight, inst20.t_weight)):
+    r = sess.solve(weights=weights)
+    exact = max_flow(sess.problem.instance_with(weights)).value
+    solvers = [v for k, v in sess._steppers.items() if "sharded" in k]
+    sess_out.append({"cut": r.cut_value, "exact": exact,
+                     "solver": [id(x) for x in solvers],
+                     "refill": r.telemetry["sharded_refill"],
+                     "backend": r.backend})
+out["session"] = sess_out
+
+# the fused halo sweep against the unfused per-copy build
+mid = grid(14, 5)
+prob = Problem.build(mid, n_blocks=4)
+for tag, extra in (("fixed", {}),
+                   ("adaptive", dict(irls_tol=1e-3, adaptive_tol=True))):
+    got = {}
+    for fuse in (False, True):
+        cfg = IRLSConfig(n_irls=12, pcg_max_iters=40, fuse_edge_sweep=fuse,
+                         **extra)
+        r = MinCutSession(prob, cfg, backend="sharded", schedule="halo",
+                          precond_bs=32, **DEV).solve()
+        got[fuse] = (r.cut_value, np.asarray(r.voltages, np.float64))
+    out["fuse_" + tag] = {"cut_unfused": got[False][0],
+                          "cut_fused": got[True][0],
+                          "max_dv": float(np.abs(got[False][1]
+                                                 - got[True][1]).max())}
+emit(out)
+"""
+
+# a world of one that the solver initializes itself (no group beforehand)
+_WORLD1 = """
+import torch
+import torch.distributed as dist
+torch.set_num_threads(1)
+RANK = 0
+from repro_torch.graphs import generators as gen
+from repro_torch.core import IRLSConfig, MinCutSession, Problem
+from repro_torch.distributed import collectives
+inst = grid(10, 3)
+cfg = IRLSConfig(n_irls=15, pcg_max_iters=60, precond="jacobi", n_blocks=1)
+prob = Problem.build(inst, n_blocks=1)
+scanned = MinCutSession(prob, cfg, backend="scanned",
+                        device="cpu").solve(cfg=cfg)
+assert not dist.is_initialized()
+sharded = MinCutSession(prob, cfg, backend="sharded", precond_bs=32,
+                        device="cpu").solve(cfg=cfg)
+out = {"cut_scanned": scanned.cut_value, "cut_sharded": sharded.cut_value,
+       "max_dv": float(np.abs(np.asarray(scanned.voltages, np.float64)
+                              - sharded.voltages).max()),
+       "backend": str(dist.get_backend()), "size": dist.get_world_size()}
+# dot2 is ONE all-reduce of the stacked pair, dot one of a scalar
+coll = collectives.Collectives()
+dot, dot2 = collectives.psum_dots(coll)
+a, b = torch.arange(4.0), torch.ones(4)
+rz, rr = dot2(a, b)
+d = dot(a, b)
+out["dots"] = {"rz": float(rz), "rr": float(rr), "dot": float(d),
+               "stats": coll.stats()["scopes"]}
+# the world of one made for the CPU refuses a solve on cuda, and
+# release_world takes it down so that another group can be made
+try:
+    collectives.world("cuda")
+    out["cuda_on_cpu_world"] = None
+except RuntimeError as e:
+    out["cuda_on_cpu_world"] = str(e)
+collectives.release_world()
+out["released"] = not dist.is_initialized()
+dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+collectives.world("cpu")
+collectives.release_world()
+out["caller_group_kept"] = dist.is_initialized()
+dist.destroy_process_group()
+emit(out)
+"""
+
+# a failed group init raises (no peer ever joins) within its timeout
+_BAD_INIT = """
+import datetime, socket
+import torch.distributed as dist
+RANK = 0
+s = socket.socket(); s.bind(("127.0.0.1", 0)); port = s.getsockname()[1]
+s.close()
+os.environ.update(RANK="0", WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+                  MASTER_PORT=str(port), LOCAL_RANK="0")
+from repro_torch.distributed.collectives import init_from_env
+try:
+    init_from_env("cpu", timeout=datetime.timedelta(seconds=3))
+    out = {"raised": None}
+except Exception as e:
+    out = {"raised": type(e).__name__}
+out["initialized"] = dist.is_initialized()
+emit(out)
+"""
+
+_END = "dist.destroy_process_group()\n"
+
+# rank 1 dies after the rendezvous: rank 0's solve must fail, not hang
+_DEAD_RANK = """
+if RANK == 1:
+    os._exit(3)
+ShardedSolver(grid(12, 3), IRLSConfig(n_irls=5, pcg_max_iters=20),
+              schedule="halo", **DEV).solve()
+emit({"finished": True})
+"""
+
+
+# jobs run side by side while their processes fit in this many cores
+MAX_SLOTS = 8
+
+
+class _Job:
+    """Subprocesses of one job (a reference run, p ranks or a command
+    line), started by ``_Jobs`` when its ``slots`` fit; output goes to
+    files beside its JSON."""
+
+    def __init__(self, name, workdir, code=None, ranks=None, devices=None,
+                 argv=None, slots=None):
+        self.name, self.workdir = name, workdir
+        self.out = os.path.join(workdir, name + ".json")
+        self.env = dict(_ENV, OUT=self.out)
+        if devices is not None:
+            self.env["XLA_FLAGS"] = (f"--xla_force_host_platform_device_"
+                                     f"count={devices}")
+        self.argv = argv or [sys.executable, "-c", textwrap.dedent(code)]
+        self.ranks = ranks
+        self.slots = slots or ranks or 1
+        self.procs, self.logs, self.t0 = [], [], None
+
+    def start(self):
+        self.t0 = time.time()
+        envs = [self.env]
+        if self.ranks is not None:
+            base = dict(self.env, WORLD_SIZE=str(self.ranks),
+                        STORE=os.path.join(self.workdir,
+                                           self.name + ".store"))
+            envs = [dict(base, RANK=str(r)) for r in range(self.ranks)]
+        for i, env in enumerate(envs):
+            log = os.path.join(self.workdir, f"{self.name}.{i}.log")
+            self.logs.append(log)
+            with open(log, "w") as f:
+                self.procs.append(subprocess.Popen(
+                    self.argv, env=env, stdout=f, stderr=subprocess.STDOUT))
+
+    def done(self) -> bool:
+        if self.t0 is None:
+            return False
+        if time.time() - self.t0 > JOB_TIMEOUT:
+            self.kill()
+        return all(p.poll() is not None for p in self.procs)
+
+    def kill(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    def report(self):
+        """(return codes, output tails, seconds) of the finished job."""
+        tails = []
+        for log in self.logs:
+            with open(log) as f:
+                tails.append(f.read()[-3000:])
+        return ([p.returncode for p in self.procs], tails,
+                time.time() - self.t0)
+
+    def result(self):
+        rcs, tails, _ = self.report()
+        assert all(rc == 0 for rc in rcs), (self.name, rcs, tails)
+        with open(self.out) as f:
+            return json.load(f)
+
+
+class _Jobs:
+    """Every job of the module, started in order as cores free up."""
+
+    def __init__(self, workdir):
+        ref_cli = [sys.executable, "-m", "repro.launch.solve", "--family",
+                   "grid", "--side", "12", "--irls", "10", "--backend",
+                   "sharded", "--json-out",
+                   os.path.join(workdir, "ref_cli.json")]
+        port_cli = [sys.executable, "-m", "torch.distributed.run",
+                    "--standalone", "--nproc-per-node", "2", "-m",
+                    "repro_torch.launch.solve", "--family", "grid",
+                    "--side", "12", "--irls", "10", "--backend", "sharded",
+                    "--device", "cpu", "--json-out",
+                    os.path.join(workdir, "port_cli.json")]
+        rank = _COMMON + _RANK
+        specs = {
+            "ref4": dict(code=_COMMON + _REF + _PARITY + "emit(out)\n",
+                         devices=4, slots=2),
+            "port4": dict(code=rank + _PORT4 + _END, ranks=4),
+            "world1": dict(code=_COMMON + _WORLD1),
+            "ref_cli": dict(argv=ref_cli, devices=2),
+            "port4_more": dict(code=rank + _PORT4_MORE + _END, ranks=4),
+            "port2": dict(code=rank + _PORT2 + _END, ranks=2),
+            "port_cli": dict(argv=port_cli, slots=3),
+            "port8": dict(code=rank + _PORT8 + _END, ranks=8),
+            "bad_init": dict(code=_COMMON + _BAD_INIT),
+            "dead_rank": dict(code=rank + _DEAD_RANK, ranks=2),
+        }
+        self._jobs = {name: _Job(name, workdir, **spec)
+                      for name, spec in specs.items()}
+        self._pending = list(self._jobs.values())
+        self._results = {}
+
+    def _pump(self):
+        running = [j for j in self._jobs.values()
+                   if j.t0 is not None and not j.done()]
+        used = sum(j.slots for j in running)
+        while self._pending and (not running or used
+                                 + self._pending[0].slots <= MAX_SLOTS):
+            job = self._pending.pop(0)
+            job.start()
+            running.append(job)
+            used += job.slots
+
+    def job(self, name) -> _Job:
+        """The finished job ``name`` (others start while it runs)."""
+        job = self._jobs[name]
+        while True:
+            self._pump()
+            if job.done():
+                return job
+            time.sleep(0.05)
+
+    def __getitem__(self, name):
+        if name not in self._results:
+            self._results[name] = self.job(name).result()
+        return self._results[name]
+
+    def close(self):
+        for job in self._jobs.values():
+            job.kill()
+
+
+@pytest.fixture(scope="module")
+def jobs():
+    with tempfile.TemporaryDirectory() as workdir:
+        js = _Jobs(workdir)
+        try:
+            yield js
+        finally:
+            js.close()
+
+
+# ---------------------------------------------------------------------------
+# both schedules at p = 4: Dinic and the reference
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("sched", ["halo", "psum"])
+def test_sharded_solver_matches_exact(jobs, sched):
+    """The two-level cut of the fixed-schedule sharded solve is the exact
+    min cut (rel 1e-6), as ``test_distributed.py`` requires."""
+    port = jobs["port4"]
+    assert port[sched + "_dinic"] == pytest.approx(port["exact"], rel=1e-6)
+
+
+def test_partition_labels_match_reference(jobs):
+    assert jobs["port4"]["labels"] == jobs["ref4"]["labels"]
+
+
+@pytest.mark.parametrize("tag", ["fixed", "adaptive"])
+@pytest.mark.parametrize("sched", ["halo", "psum"])
+def test_fractional_cut_matches_reference(jobs, sched, tag):
+    got, want = jobs["port4"][sched + "_" + tag], jobs["ref4"][sched + "_" + tag]
+    assert got["frac"] == pytest.approx(want["frac"], rel=1e-4)
+    assert got["cut"] == pytest.approx(want["cut"], rel=1e-6)
+
+
+@pytest.mark.parametrize("sched,atol", [("halo", 1e-3), ("psum", 1e-4)])
+def test_voltages_match_reference(jobs, sched, atol):
+    """Fixed schedule at eps = 1e-3.  The fused halo path sums its ELL
+    lanes in another order than XLA (ROADMAP queue 3), hence the looser bar
+    there."""
+    got = np.asarray(jobs["port4"][sched + "_fixed"]["v"])
+    want = np.asarray(jobs["ref4"][sched + "_fixed"]["v"])
+    np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("sched", ["halo", "psum"])
+def test_adaptive_pcg_spend_matches_reference(jobs, sched):
+    """The adaptive schedule spends the reference's PCG iterations per IRLS
+    iteration, freezes at the same iteration and saves over the fixed
+    schedule."""
+    got = jobs["port4"][sched + "_adaptive"]["iters"]
+    want = jobs["ref4"][sched + "_adaptive"]["iters"]
+    assert got == want
+    assert got[-1] == 0
+    assert sum(got) < sum(jobs["port4"][sched + "_fixed"]["iters"])
+
+
+# ---------------------------------------------------------------------------
+# the collective census
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("sched", ["halo", "psum"])
+def test_fixed_and_adaptive_collectives_per_pcg_step_equal(jobs, sched):
+    """The masked schedule rides the same per-step reductions: the
+    ``pcg_step`` scope holds the same collective counts per CG step under
+    the fixed and the adaptive schedule."""
+    fixed = jobs["port4"][sched + "_fixed"]["stats"]
+    adaptive = jobs["port4"][sched + "_adaptive"]["stats"]
+    assert fixed["pcg_steps"] > 0 and adaptive["pcg_steps"] > 0
+    ops = lambda st: {op: v for op, v in st["per_pcg_step"].items()
+                      if op != "bytes"}
+    assert ops(fixed) == ops(adaptive)
+    want = ({"all_gather": 1.0, "all_reduce": 2.0, "calls": 3.0}
+            if sched == "halo" else {"all_reduce": 1.0, "calls": 1.0})
+    assert ops(fixed) == want
+
+
+def test_dot2_is_one_all_reduce(jobs):
+    """``psum_dots``: ``dot2`` reduces the stacked [r·z, r·r] pair in ONE
+    all-reduce (8 bytes), ``dot`` one scalar."""
+    d = jobs["world1"]["dots"]
+    assert (d["rz"], d["rr"], d["dot"]) == (6.0, 14.0, 6.0)
+    assert d["stats"] == {"setup": {"all_reduce": {"calls": 2,
+                                                   "bytes": 12}}}
+
+
+def test_halo_collective_smaller_than_psum(jobs):
+    """The partition-aware halo schedule moves fewer collective bytes per
+    CG step than the psum baseline at p = 8 (the paper's §3.3 argument)."""
+    res = jobs["port8"]
+    halo = res["halo"]["per_pcg_step"]["bytes"]
+    psum = res["psum"]["per_pcg_step"]["bytes"]
+    assert halo < 0.7 * psum, res
+
+
+def test_halo_int8_compression_reduces_bytes(jobs):
+    """int8 halo values and one float scale per rank: the step's bytes drop
+    below 0.4× and the solver still produces a valid cut."""
+    plain = jobs["port4_more"]["int8_None"]
+    int8 = jobs["port4_more"]["int8_int8"]
+    assert int8["per_step"]["bytes"] < 0.4 * plain["per_step"]["bytes"]
+    assert int8["per_step"]["all_gather"] == 2.0
+    assert int8["valid"] and int8["cut"] > 0
+
+
+# ---------------------------------------------------------------------------
+# session backend, clamp, fused sweep, plan edge cases
+# ---------------------------------------------------------------------------
+
+def test_session_sharded_backend_refills(jobs):
+    """``MinCutSession(backend="sharded")`` matches the exact cut; later
+    same-topology solves keep the one solver and only refill its plans: a
+    dense drift by a full refill, a sparse one by the delta refill.  (The
+    reference also finds the second setup shorter: its first one compiles
+    the SPMD program, which the port does not have.)"""
+    first, dense, sparse = jobs["port2"]["session"]
+    for r in (first, dense, sparse):
+        assert r["backend"] == "sharded"
+        assert r["cut"] == pytest.approx(r["exact"], rel=1e-4)
+    assert len(first["solver"]) == 1
+    assert first["solver"] == dense["solver"] == sparse["solver"]
+    assert first["refill"] == {"delta": 0, "rebuild": 0}
+    assert dense["refill"] == {"delta": 0, "rebuild": 1}
+    assert sparse["refill"] == {"delta": 1, "rebuild": 1}
+
+
+@pytest.mark.parametrize("sched", ["halo", "psum"])
+def test_sharded_reweight_clamp(jobs, sched):
+    """At ε = 1e-8 in float32 the clamp caps the reweights: hits recorded,
+    no Float32DivergenceWarning, the cut within 5e-3 of exact."""
+    more = jobs["port4_more"]
+    r = more["clamp_" + sched]
+    assert r["cut"] == pytest.approx(more["clamp_exact"], rel=5e-3)
+    assert r["hits"] > 0
+    assert not r["warned"]
+
+
+@pytest.mark.parametrize("tag", ["fixed", "adaptive"])
+def test_sharded_fused_sweep_matches_unfused(jobs, tag):
+    r = jobs["port2"]["fuse_" + tag]
+    assert r["cut_fused"] == pytest.approx(r["cut_unfused"], rel=1e-4), r
+    # voltages only loosely: unpinned plateau values wander ~1e-2 between
+    # summation orders (ELL lane sums vs scatter); a wrong system build
+    # would show up as O(1) differences and a cut miss
+    assert r["max_dv"] < 5e-2, r
+
+
+def test_halo_solve_nondividing_n_matches_exact(jobs):
+    r = jobs["port4_more"]["nondividing"]
+    assert r["nl"] * 4 > r["n"]
+    assert r["cut"] == pytest.approx(r["exact"], rel=1e-4)
+
+
+@pytest.mark.parametrize("tag", ["fixed", "adaptive"])
+def test_halo_solve_empty_boundary_shards_matches_host(jobs, tag):
+    """Two ranks whose shards share no edge (empty export lists) solve
+    without degenerate collectives and land on the host result."""
+    r = jobs["port2"][tag]
+    assert r["exports"] == 0 and r["b_sh"] == 1
+    assert r["sharded"] == pytest.approx(r["host"], rel=1e-3), r
+
+
+def test_world_of_one_initializes_itself(jobs):
+    """With no group initialized, the sharded session runs in a world of
+    one that the solver initializes itself (gloo over a HashStore on the
+    CPU), and lands on the scanned backend's cut."""
+    r = jobs["world1"]
+    assert (r["backend"], r["size"]) == ("gloo", 1)
+    assert r["cut_sharded"] == pytest.approx(r["cut_scanned"], rel=1e-5)
+
+
+def test_world_of_one_is_checked_and_released(jobs):
+    """The solver's world of one is made for the CPU (gloo only): a later
+    solve on cuda raises instead of staging through the host, and
+    ``release_world`` takes it down; a group the caller made stays."""
+    r = jobs["world1"]
+    assert "release_world" in (r["cuda_on_cpu_world"] or ""), r
+    assert r["released"] and r["caller_group_kept"], r
+
+
+@pytest.mark.xfail(strict=True, reason=(
+    "as in the reference (tests/test_halo_plan.py::"
+    "test_halo_single_shard_degenerates_to_host, max_dv 0.0532): the cuts "
+    "are equal, but at eps = 1e-6 the scanned COO build and the halo "
+    "ELL-fused build sum in different orders and the plateau voltages "
+    "wander 0.0631 apart in the port (ROADMAP queue 3)"))
+def test_halo_single_rank_degenerates_to_scanned(jobs):
+    """p = 1: the halo machinery reproduces the scanned fixed-schedule
+    result — same cut, voltages within float tolerance."""
+    r = jobs["world1"]
+    assert r["cut_sharded"] == pytest.approx(r["cut_scanned"], rel=1e-5)
+    assert r["max_dv"] < 5e-2, r
+
+
+# ---------------------------------------------------------------------------
+# the CLI, and failures
+# ---------------------------------------------------------------------------
+
+def test_solve_cli_sharded_under_torchrun_matches_reference(jobs):
+    """``torchrun --nproc-per-node 2 -m repro_torch.launch.solve --backend
+    sharded --device cpu`` against the reference CLI on two devices: one
+    JSON (rank 0's), the same fields, cut and exact baseline."""
+    got, want = jobs["port_cli"], jobs["ref_cli"]
+    assert set(got) == set(want)
+    assert (got["n"], got["m"], got["backend"]) == (want["n"], want["m"],
+                                                    "sharded")
+    assert got["cut_exact"] == pytest.approx(want["cut_exact"], rel=1e-12)
+    assert got["cut_two_level"] == pytest.approx(want["cut_two_level"],
+                                                 rel=1e-6)
+    assert got["delta_two_level"] == pytest.approx(0.0, abs=1e-6)
+
+
+def test_sharded_on_cuda_without_a_card_raises():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this container has a card")
+    from repro_torch.core import IRLSConfig, MinCutSession, Problem
+    from repro_torch.graphs import generators as gen
+
+    g = gen.grid_2d(6, 6, seed=1)
+    inst = gen.segmentation_instance(g, (6, 6), seed=2)
+    sess = MinCutSession(Problem.build(inst, n_blocks=1),
+                         IRLSConfig(precond="jacobi", n_blocks=1, n_irls=2),
+                         backend="sharded")
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        sess.solve()
+
+
+def test_failed_group_init_raises(jobs):
+    r = jobs["bad_init"]
+    assert r["raised"] is not None and not r["initialized"]
+
+
+def test_dead_rank_fails_the_run(jobs):
+    """A rank that dies after the rendezvous makes the others' next
+    collective fail: every process exits non-zero, within the timeout."""
+    rcs, logs, seconds = jobs.job("dead_rank").report()
+    assert rcs[1] == 3
+    assert rcs[0] != 0, logs[0]
+    assert seconds < JOB_TIMEOUT

@@ -84,6 +84,21 @@ def test_port_cuttree_and_dashboard_modules_stand_alone():
                      "repro_torch.obs.dashboard", "repro_torch.launch.obs"}
 
 
+def test_port_distributed_modules_stand_alone():
+    """The sharded solver (plans, collectives, solver) imports with ``jax``
+    blocked and brings in no ``repro`` module."""
+    probe = _PROBE.replace("print(len(names))", "print(' '.join(names))")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", probe], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    names = set(out.stdout.split())
+    assert names >= {"repro_torch.distributed",
+                     "repro_torch.distributed.collectives",
+                     "repro_torch.distributed.spmv",
+                     "repro_torch.distributed.solver"}
+
+
 def test_port_sources_name_no_jax_or_repro():
     """No source file of the port spells an import of jax or of repro."""
     for path in (SRC / "repro_torch").rglob("*.py"):

@@ -129,14 +129,16 @@ def test_session_weights_and_warm_start(road_instance):
 
 
 def test_session_later_slices_raise(grid_instance):
-    """Only the sharded backend is a later slice: presolve and delta staging
-    of the fused-ELL weight table are ported, and a keyed solve is the
-    keyless one bit for bit."""
+    """No backend is a later slice any more: presolve and delta staging of
+    the fused-ELL weight table are ported, and a keyed solve is the keyless
+    one bit for bit.  The sharded backend refuses ``warm_from`` as the
+    reference's does (it runs a fixed cold schedule)."""
     s = MinCutSession(Problem.build(_port(grid_instance), 1),
                       IRLSConfig(precond="jacobi", n_irls=1), device="cpu")
     fused_ell = IRLSConfig(precond="jacobi", n_irls=1, layout="ell")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*distributed/"):
-        s.solve(backend="sharded")
+    assert "sharded" in MinCutSession.BACKENDS
+    with pytest.raises(ValueError, match="warm_from"):
+        s.solve(backend="sharded", warm_from=np.zeros(grid_instance.n))
     pre = s.solve(presolve=True)
     assert pre.cut.meta["presolve"]["certificate"]["rel_gap"] == \
         pytest.approx(0.0, abs=1e-9)

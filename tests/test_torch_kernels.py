@@ -318,6 +318,64 @@ def test_build_log_reads_the_log_beside_the_library(monkeypatch, tmp_path):
     assert build.build_log("fused_ell_sweep") == ""
 
 
+_FAKE_NVCC = """#!{python}
+import os, sys, time
+out = sys.argv[sys.argv.index("-o") + 1]
+with open(os.environ["NVCC_CALLS"], "a") as f:
+    f.write(out + "\\n")
+with open(out, "w") as f:
+    f.write("half")
+    f.flush()
+    time.sleep(0.5)          # a reader that skips the lock sees half a file
+    f.write(" a library")
+print("ptxas info    : Used 40 registers")
+"""
+
+_RACE = """
+import sys
+from pathlib import Path
+from repro_torch.kernels import build
+build.BUILD_DIR = Path(sys.argv[1])
+build.build_all(["edge_reweight"])
+print(build.library_path("edge_reweight").read_text())
+"""
+
+
+def test_build_is_one_compile_across_processes(tmp_path):
+    """Several processes that build a kernel at once (the ranks of a
+    sharded solve) run ONE compile under the build directory's lock: the
+    others wait and find its library.  nvcc writes a temporary name that
+    is moved into place, so nobody reads a half-written library."""
+    import os
+    import subprocess
+    import sys
+
+    cuda = tmp_path / "cuda"
+    (cuda / "bin").mkdir(parents=True)
+    nvcc = cuda / "bin" / "nvcc"
+    nvcc.write_text(_FAKE_NVCC.format(python=sys.executable))
+    nvcc.chmod(0o755)
+    calls = tmp_path / "calls.txt"
+    out_dir = tmp_path / "kernels"
+    src = str(build.CSRC.parents[2])
+    env = dict(os.environ, CUDA_HOME=str(cuda), NVCC_CALLS=str(calls),
+               PYTHONPATH=src)
+    procs = [subprocess.Popen([sys.executable, "-c", _RACE, str(out_dir)],
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for _ in range(4)]
+    outs = [p.communicate(timeout=120) for p in procs]
+    assert all(p.returncode == 0 for p in procs), outs
+    assert [o.strip() for o, _ in outs] == ["half a library"] * 4
+    compiled = calls.read_text().split()
+    assert len(compiled) == 1 and compiled[0].endswith(".tmp")
+    assert sorted(f.name for f in out_dir.iterdir()) == sorted(
+        [".lock", build.library_path("edge_reweight").name,
+         build.library_path("edge_reweight").with_suffix(".log").name])
+    assert "40 registers" in (out_dir / build.library_path(
+        "edge_reweight").with_suffix(".log").name).read_text()
+
+
 def _model_layout(rng, b, sq, sk, h, kv, d):
     return tuple(torch.as_tensor(rng.standard_normal(s).astype(np.float32))
                  for s in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d)))

@@ -76,11 +76,22 @@ def test_solve_cli_matches_reference(tmp_path, monkeypatch, capsys, family,
 
 
 @pytest.mark.parametrize("argv", [["--backend", "sharded"], ["--sharded"]])
-def test_solve_cli_sharded_is_not_ported(argv):
+def test_solve_cli_sharded_is_not_ported(argv, tmp_path):
+    """The sharded backend is ported: with no ``torchrun`` around it the CLI
+    runs a world of one (gloo on the CPU), lands on the exact cut and
+    leaves no process group behind."""
+    import torch.distributed as dist
     from repro_torch.launch import solve
 
-    with pytest.raises(NotImplementedError, match="distributed/"):
-        solve.main(["--side", "6", "--device", "cpu"] + argv)
+    owned = not dist.is_initialized()
+    out = tmp_path / "sharded.json"
+    solve.main(["--side", "6", "--irls", "10", "--device", "cpu",
+                "--json-out", str(out)] + argv)
+    got = json.loads(out.read_text())
+    assert got["backend"] == "sharded"
+    assert got["cut_two_level"] == pytest.approx(got["cut_exact"], rel=1e-6)
+    if owned:
+        assert not dist.is_initialized()
 
 
 # ---------------------------------------------------------------------------
