@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py [--side 96] [--n-irls 50] [--seed 0]
-                          [--frame 1024] [--ell-side 48] [--tree-side 48]
+                          [--frame 1024] [--ell-side 48] [--tree-side 40]
 
 Phases (any failure raises and exits non-zero; there is no CPU path):
 
@@ -127,7 +127,7 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
        without presolve.  A keyed sequence (rebuild, then patches of 0.1%
        drifts among the edges additive into kernel edges), the lifted cuts
        certified; a random 0.1% drift probed against revalidation.
-       ``solve_batch(presolve=True)`` of 4 scaled weight vectors within rel
+       ``solve_batch(presolve=True)`` of 2 weight vectors (×1, ×1.5) within rel
        1e-3 of the unpresolved batch, or, where the adaptive schedule stops
        the unpresolved lane above the min cut, the presolved lane within
        rel 1e-6 of exact Dinic; at side 128 in tests/test_presolve.py's
@@ -140,8 +140,8 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
 12. Cut trees, through ``edge_reweight`` (the cut-tree default config with
     ``use_pallas``: one launch per IRLS iteration of every ``solve_batch``
     call, checked for every IRLS build and repair below).
-    a. ``build_cut_tree`` of the cut_tree CLI's ``--family grid --side 48``
-       (n = 2,304, m = 4,512) in batches of up to 64 pair solves, traced
+    a. ``build_cut_tree`` of the cut_tree CLI's ``--family grid --side 40``
+       (n = 1,600, m = 3,120) in batches of up to 64 pair solves, traced
        to a JSONL sink: build seconds, solves, waves, discarded
        speculation, pairs/s; the global min cut, 10,000 random pair queries
        (µs each) and 25 of them against the exact Dinic cut (rel 1e-3, the
@@ -187,6 +187,34 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
        psum's, each rank's kernels held at its shard's shapes.
     c. ``launch.solve --backend sharded`` as a subprocess (world of one).
 
+14. MoE serving at full width, phase 10's traffic (4 prompts of 4096
+    tokens, 64 greedy tokens), one arch at a time on the card.
+    a. ``flash_fwd`` alone, as in phase 10a, at llama4-maverick's attention
+       shape: 40 query heads over 8 KV heads of 128 (G = 5).
+    d. ``moe_layer`` at one layer's shapes of each arch (llama4: E = 128,
+       top-1, d_ff 8192; mixtral: E = 8, top-2, d_ff 16384) on 16,384
+       seeded tokens: 64 sampled tokens held against a float32 per-token
+       reference (8 bf16 roundings of each entry's scale), the dropped
+       entries equal to a host recount from the top ids and C, rows of
+       fully dropped tokens 0; ``moe_layer_grouped`` in 8 groups against
+       ``moe_layer`` at capacity ≥ T on 2,048 tokens.
+    b. llama4-maverick (d_model 5120, 128 experts top-1 and the shared
+       expert, vocab 202,048) at depth 2 of 48 (67.3 GB of bf16 weights)
+       through ``serve`` with ``use_pallas_attention``: ``flash_fwd`` once
+       per layer in prefill and never in decode; prefill, decode and its
+       bound (every weight read a step), peak memory; kernel vs plain
+       attention path with the routes recorded: each layer's share of
+       routes that differ, the last-position logits within 5e-2 of max
+       |logits| on the lanes whose last token took the same experts in
+       every layer (at least 2 of 4), greedy-token agreement; profiles of
+       the prefill and 4 decode steps.
+    c. mixtral-8x22b (d_model 6144, 8 experts top-2, window 4096) at depth
+       4 of 56 (20.4 GB): no launch (its layers are all windowed and stay
+       on the banded path, as in the reference); the decode runs to
+       position 4158 through the wrapped ring caches, and its last logits
+       are held against a fresh forward over the prompt and the generated
+       tokens on the same held-lanes rule.
+
 TF32 is switched off for matmuls and cuDNN, so every float32 product is a
 full float32 product.  The last two lines of standard output are the
 ``kernels`` JSON line and ``{"ok": true, "device": {...}}``.  Details go to
@@ -195,6 +223,7 @@ full float32 product.  The last two lines of standard output are the
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -1707,7 +1736,11 @@ def presolve_phase(seed: int, side: int = ROAD_SIDE):
         raise AssertionError(f"presolve actions {actions}")
 
     # a presolved batch of scaled weights on the scanned program
-    scales = (1.0, 1.5, 0.8, 1.2)
+    # ×1.0 reuses the rebuilt kernel; ×1.5 kernelizes anew (~55 s on the
+    # card machine's host, which is why the batch holds two lanes) and is
+    # a lane where the adaptive schedule stops the unpresolved solve above
+    # the min cut
+    scales = (1.0, 1.5)
     ws = [Weights(c0 * s, cs, ct) for s in scales]
     ops.reset_launches()
     t = time.perf_counter()
@@ -1826,11 +1859,12 @@ def cli_phase(out_dir: Path):
 
 # -- phase 12: cut trees at full width -----------------------------------------
 
-# the cut_tree CLI's --family grid --side 48 (n = 2,304, m = 4,512), in
+# the cut_tree CLI's --family grid --side 40 (n = 1,600, m = 3,120), in
 # batches of up to 64 pair solves: each pair solve costs ~35-50 ms of
 # launches (the batched PCG's per-lane inner products), so a side-64 tree
-# (~4,800 solves) takes 165-250 s, more than the run can give it
-CUTTREE_SIDE, CUTTREE_BATCH = 48, 64
+# (~4,800 solves) takes 165-250 s and a side-48 one 155-184 s, more than
+# the run can give it beside the other phases
+CUTTREE_SIDE, CUTTREE_BATCH = 40, 64
 # 12b's route check (in batches of up to ROUTE_BATCH) and the exact oracles
 # of 12c and 12d, at a side where their IRLS builds and repairs fit the
 # run's time and where Dinic takes milliseconds a pair
@@ -2663,6 +2697,418 @@ def sharded_phase(inst, labels, cfg, host_cut: float, seed: int,
     return out
 
 
+# -- phase 14: MoE serving at full width ------------------------------------
+
+# phase 14's depth cuts: llama4-maverick at 2 of its 48 layers (67.3 GB of
+# bf16 weights on the 80 GB card), mixtral-8x22b at 4 of its 56 (20.4 GB)
+MOE_DEPTH = {"llama4-maverick-400b-a17b": 2, "mixtral-8x22b": 4}
+# the MoE layer alone: the prefill's 4 × 4096 tokens, 64 sampled tokens
+# held against the float32 reference, the grouped dispatch at 2,048 tokens
+# in 8 groups (capacity ≥ T: its [E, T, F] buffers bound the memory)
+MOE_TOKENS, MOE_SAMPLES, MOE_GROUPED_TOKENS, MOE_GROUPS = 16384, 64, 2048, 8
+# moe_layer in bf16 against a float32 per-token reference, of each entry's
+# scale Σ_j g_j Σ_f |a_f·w2_fd| (a = silu(x·w1) ⊙ x·w3): a carries four
+# roundings to bf16 at u = 2^-8 (x·w1, x·w3, silu, the product), then the
+# expert's output, the gate's cast, the gated product and the sum of the k
+# choices one each
+MOE_RTOL = 8 * 2.0 ** -8
+# query and key chunk of 14c's fresh forward over 4096 + 64 tokens (4159,
+# the last decode step's length, is prime)
+FRESH_CHUNK = 520
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Each ``moe_layer`` call's routes while open: a list of (experts
+    [T, k], keep [T, k], capacity) per call, in layer order.  ``moe_layer``
+    is wrapped to compute ``moe_routes`` on its input first; it computes
+    the same routes again inside."""
+    from repro_torch.models import layers
+
+    real = layers.moe_layer
+    calls = []
+
+    def moe_layer(x, p, top_k, capacity_factor=1.25):
+        r = layers.moe_routes(x, p.router, top_k, capacity_factor)
+        calls.append((r.experts, r.keep.view(r.experts.shape), r.capacity))
+        return real(x, p, top_k, capacity_factor)
+
+    layers.moe_layer = moe_layer
+    try:
+        yield calls
+    finally:
+        layers.moe_layer = real
+
+
+def same_routes(a, b, rows_a, rows_b):
+    """Per lane: whether its token (row ``rows_a[i]`` of a's routes, row
+    ``rows_b[i]`` of b's) took the same experts, kept or dropped alike, in
+    every layer."""
+    import numpy as np
+
+    same = np.ones(len(rows_a), bool)
+    for (ea, ka, _), (eb, kb, _) in zip(a, b, strict=True):
+        same &= ((ea[rows_a] == eb[rows_b]).all(-1)
+                 & (ka[rows_a] == kb[rows_b]).all(-1)).cpu().numpy()
+    return same
+
+
+def held_logits(label, got, want, lanes):
+    """The logits of the held lanes within LOGIT_RTOL of their max |logits|;
+    fails if fewer than 2 of the lanes are held."""
+    import numpy as np
+
+    held = np.flatnonzero(lanes)
+    gap = float((got[held] - want[held]).abs().max()) if len(held) else 0.0
+    scale = float(want[held].abs().max()) if len(held) else 0.0
+    log(f"[moe] {label}: lanes held (same experts in every layer) "
+        f"{held.tolist()} of {len(lanes)}; their logits max |Δ| {gap:.4e} of "
+        f"max |logits| {scale:.4e} (rel {gap / max(scale, 1e-30):.3e}, "
+        f"tolerance {LOGIT_RTOL})")
+    if len(held) < 2:
+        raise AssertionError(f"{label}: {len(held)} lanes held, fewer than 2")
+    if not gap <= LOGIT_RTOL * scale:
+        raise AssertionError(f"{label}: logits {gap} > {LOGIT_RTOL} × "
+                             f"{scale}")
+    return dict(lanes_held=held.tolist(), logit_gap=gap, logit_scale=scale)
+
+
+def moe_alone(cfg, seed: int):
+    """Phase 14d: ``moe_layer`` at one layer's shapes of the arch (its
+    router and experts drawn as ``init_params`` draws them), on T = 16,384
+    tokens from a seeded generator: the routes computed once; 64 sampled
+    tokens with every choice kept held against a float32 per-token
+    reference Σ_j g_j·expert_j(x); the dropped (token, choice) set equal to
+    a host recount from the top ids and C, rows with every choice dropped
+    exactly 0; then ``moe_layer_grouped`` in 8 groups against
+    ``moe_layer`` at capacity ≥ T on the first 2,048 tokens."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import layers as nn
+    from repro_torch.models import transformer as tr
+
+    dev = torch.device("cuda")
+    one = dataclasses.replace(cfg, n_layers=1)
+    params = tr.init_params(one, torch.Generator(device=dev).manual_seed(
+        seed + 14), device=dev)
+    lp = params.layer(0)
+    p = nn.MoEParams(router=lp["router"], w1=lp["w1"], w3=lp["w3"],
+                     w2=lp["w2"])
+    E, k, cf = cfg.moe.n_experts, cfg.moe.top_k, cfg.moe.capacity_factor
+    T = MOE_TOKENS
+    x = torch.randn((T, cfg.d_model), generator=torch.Generator(
+        device=dev).manual_seed(seed + 15), device=dev).to(cfg.dtype)
+    r = nn.moe_routes(x, p.router, k, cf)
+    y = nn.moe_layer(x, p, k, cf)
+    experts = r.experts.cpu().numpy()
+    keep = r.keep.view(T, k).cpu().numpy()
+    C = r.capacity
+    # the host recount: each entry's rank among its expert's in token-major
+    # order, by a running count per expert
+    counts = np.zeros(E, np.int64)
+    rank = np.empty(T * k, np.int64)
+    for i, e in enumerate(experts.reshape(-1).tolist()):
+        rank[i] = counts[e]
+        counts[e] += 1
+    if not np.array_equal(~keep.reshape(-1), rank >= C):
+        raise AssertionError(f"{cfg.name}: dropped entries differ from the "
+                             f"host recount")
+    none_kept = ~keep.any(axis=1)
+    if bool(y[torch.as_tensor(none_kept, device=dev)].any()):
+        raise AssertionError(f"{cfg.name}: a token with every choice dropped "
+                             f"has a nonzero row")
+    # the float32 reference on sampled tokens, grouped by expert
+    pick = np.random.default_rng(seed).choice(np.flatnonzero(keep.all(axis=1)),
+                                              MOE_SAMPLES, replace=False)
+    gates = r.gates[torch.as_tensor(pick, device=dev)]          # [n, k]
+    xs = x[torch.as_tensor(pick, device=dev)].float()
+    want = torch.zeros_like(xs)
+    scale = torch.zeros_like(xs)
+    for e in np.unique(experts[pick]).tolist():
+        rows, js = np.nonzero(experts[pick] == e)
+        rows_t = torch.as_tensor(rows, device=dev)
+        g = gates[rows_t, torch.as_tensor(js, device=dev)][:, None]
+        w2 = p.w2[e].float()
+        xe = xs[rows_t]
+        a = F.silu(xe @ p.w1[e].float()) * (xe @ p.w3[e].float())
+        want.index_add_(0, rows_t, g * (a @ w2))
+        scale.index_add_(0, rows_t, g * (a.abs() @ w2.abs()))
+    got = y[torch.as_tensor(pick, device=dev)].float()
+    err = check_close(f"moe_layer {cfg.name} layer shape, {MOE_SAMPLES} "
+                      f"tokens vs float32", [got], [want], MOE_RTOL, [scale])
+    ms = time_ms(lambda: nn.moe_layer(x, p, k, cf), 5, warmup=1)
+    dropped = int((~keep).sum())
+    log(f"[moe] 14d {cfg.name}: T {T}, E {E}, top-{k}, C {C}; dropped "
+        f"(token, choice) entries {dropped} of {T * k} (= the host recount), "
+        f"tokens with no choice kept {int(none_kept.sum())} (rows 0); "
+        f"moe_layer {ms:.3f} ms")
+    del y, r, want, scale
+    # grouped against global at capacity ≥ T
+    x2 = x[:MOE_GROUPED_TOKENS]
+    y1 = nn.moe_layer(x2, p, k, float(E))
+    y2 = nn.moe_layer_grouped(x2, p, k, float(E), MOE_GROUPS)
+    gap = (y1.float() - y2.float()).abs()
+    row = y1.float().abs().amax(dim=1, keepdim=True)
+    equal = bool(torch.equal(y1, y2))
+    log(f"[moe] 14d {cfg.name}: moe_layer_grouped ({MOE_GROUPS} groups) vs "
+        f"moe_layer at capacity factor {E} on {MOE_GROUPED_TOKENS} tokens: "
+        f"bit-equal {equal}, max |Δ| {float(gap.max()):.3e} (tolerance "
+        f"2^-6 of each row's max |y|)")
+    if not bool((gap <= 2.0 ** -6 * row).all()):
+        raise AssertionError(f"{cfg.name}: grouped vs global MoE differ")
+    del params, p, lp, x, x2, y1, y2
+    torch.cuda.empty_cache()
+    return dict(tokens=T, capacity=C, dropped=dropped,
+                no_choice_kept=int(none_kept.sum()), max_abs_err=err, ms=ms,
+                grouped_bit_equal=equal, grouped_max_gap=float(gap.max()))
+
+
+def moe_serve(cfg, batch: int, seq: int, gen_len: int, seed: int):
+    """Phase 14b/14c's common part: the arch at full width (its depth cut
+    to ``MOE_DEPTH``) from a seeded generator on the card, served through
+    ``launch.lm_serve.serve``: the launches (``flash_fwd`` once per global
+    layer, every layer of llama4, none of mixtral's windowed ones), tokens
+    in range, prefill and decode times, peak memory and the decode bound
+    (every step reads every weight: each expert runs its C = 8 slots, the
+    embedding is the LM head; and the whole KV cache).  Returns (params,
+    prompts, tokens, the phase's record)."""
+    import torch
+
+    from repro_torch.data.lm import token_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.lm_serve import serve
+    from repro_torch.models import transformer as tr
+
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    params = tr.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                            device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    weight_bytes = sum(nbytes(p) for p in params.parameters())
+    prompts = token_batch(cfg.vocab, batch, seq, seed=seed)
+    log(f"[moe] {cfg.name} at depth {cfg.n_layers}: {cfg.param_count():,} "
+        f"parameters ({weight_bytes / 1e9:.2f} GB, {cfg.dtype}), "
+        f"{cfg.active_param_count():,} active per token; initialized in "
+        f"{init_s:.1f} s")
+    serve(cfg, params, prompts[:, :128], 2, dev)     # warm-up, not read
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    tokens, tm = serve(cfg, params, prompts, gen_len, dev)
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    n_full = sum(1 for kind in cfg.layer_kinds() if kind == "G")
+    want = dict(NO_LAUNCHES, flash_fwd=n_full if cfg.use_pallas_attention
+                else 0)
+    cache_bytes = sum(nbytes(c) for c in tr.init_cache(
+        cfg, batch, seq + gen_len, device="meta").values())
+    step_bound_ms = (weight_bytes + cache_bytes) / PEAK_BYTES_PER_S * 1e3
+    steps = gen_len - 1
+    rec = dict(depth=cfg.n_layers, params=cfg.param_count(),
+               weight_bytes=weight_bytes, init_s=init_s,
+               prefill_s=tm["prefill_s"], decode_s=tm["decode_s"],
+               prefill_tok_s=batch * seq / tm["prefill_s"],
+               decode_tok_s=batch * steps / tm["decode_s"],
+               decode_step_ms=tm["decode_s"] / steps * 1e3,
+               decode_step_bound_ms=step_bound_ms, peak_bytes=peak,
+               launches=launches)
+    log(f"[moe] {cfg.name} serve: prefill {batch}x{seq} in "
+        f"{tm['prefill_s']:.3f} s ({rec['prefill_tok_s']:.0f} tok/s), decode "
+        f"{steps} steps in {tm['decode_s']:.3f} s ({rec['decode_tok_s']:.1f} "
+        f"tok/s, {rec['decode_step_ms']:.2f} ms a step; bound "
+        f"{step_bound_ms:.2f} ms a step from "
+        f"{(weight_bytes + cache_bytes) / 1e9:.2f} GB read, {batch / step_bound_ms * 1e3:.1f} tok/s); peak device "
+        f"memory {peak / 2**30:.2f} GiB")
+    log(f"[moe] {cfg.name} launches {launches} (expected {want}: "
+        + ("one flash_fwd per layer in prefill, none in decode)" if n_full else
+           "windowed layers stay on the banded path, as in the reference)"))
+    if launches != want:
+        raise AssertionError(f"{cfg.name} launches {launches} != {want}")
+    if tokens.shape != (batch, gen_len) or not (
+            (tokens >= 0) & (tokens < cfg.vocab)).all():
+        raise AssertionError(f"{cfg.name}: generated tokens {tokens.shape} "
+                             f"out of range")
+    return params, prompts, tokens, rec
+
+
+def moe_llama4_phase(cfg, batch: int, seq: int, gen_len: int, seed: int):
+    """Phase 14b: llama4-maverick served at full width through the kernel
+    (``moe_serve``), then its prefill on the kernel and the plain attention
+    path with the routes recorded: ``flash_fwd`` once per layer on the
+    kernel path and never on the plain one, each layer's share of (token,
+    choice) routes that differ, the last-position logits held on the lanes
+    whose last token took the same experts in every layer; the plain path's
+    greedy tokens against the kernel path's; a profile of the prefill and
+    of 4 decode steps."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.lm_serve import serve
+    from repro_torch.models import transformer as tr
+
+    dev = torch.device("cuda")
+    params, prompts, tokens, rec = moe_serve(cfg, batch, seq, gen_len, seed)
+    plain_cfg = dataclasses.replace(cfg, use_pallas_attention=False)
+    toks = torch.as_tensor(prompts, dtype=torch.long, device=dev)
+    cap = seq + gen_len
+    ops.reset_launches()
+    with recorded_routes() as routes_k:
+        logits_k, _ = tr.prefill(params, toks, cfg, pad_cache_to=cap)
+    prefill_launches = dict(ops.launches)
+    with recorded_routes() as routes_p:
+        logits_p, _ = tr.prefill(params, toks, plain_cfg, pad_cache_to=cap)
+    if prefill_launches != dict(NO_LAUNCHES, flash_fwd=cfg.n_layers) or \
+            ops.launches != prefill_launches:
+        raise AssertionError(f"prefill launches {prefill_launches}, then the "
+                             f"plain path {dict(ops.launches)}")
+    if not bool(torch.isfinite(logits_k).all()):
+        raise AssertionError("non-finite logits on the kernel path")
+    differ = [float(((ek != ep) | (kk != kp)).float().mean())
+              for (ek, kk, _), (ep, kp, _) in zip(routes_k, routes_p,
+                                                  strict=True)]
+    drops = [[int((~keep).sum()) for _, keep, _ in r] for r in (routes_k,
+                                                                 routes_p)]
+    log(f"[moe] 14b prefill, kernel vs plain attention path: share of "
+        f"(token, choice) routes that differ, per layer {differ}; entries "
+        f"dropped per layer {drops[0]} and {drops[1]} of "
+        f"{batch * seq * cfg.moe.top_k}")
+    last = [b * seq + seq - 1 for b in range(batch)]
+    held = held_logits("14b last-position logits, kernel vs plain path",
+                       logits_k, logits_p, same_routes(routes_k, routes_p,
+                                                       last, last))
+    del logits_k, logits_p, routes_k, routes_p
+    plain_tokens, plain_tm = serve(plain_cfg, params, prompts, gen_len, dev)
+    agree = (tokens == plain_tokens).sum(axis=1).tolist()
+    log(f"[moe] 14b plain path: prefill {plain_tm['prefill_s']:.3f} s, decode "
+        f"{plain_tm['decode_s']:.3f} s; generated tokens equal to the kernel "
+        f"path's, per lane (of {gen_len}): {agree}")
+    prof = {"prefill": profile_call(
+        lambda: tr.prefill(params, toks, cfg, pad_cache_to=cap),
+        f"llama4 prefill {batch}x{seq}")}
+    _, cache = tr.prefill(params, toks, cfg, pad_cache_to=cap)
+    first = torch.as_tensor(tokens[:, 0], dtype=torch.long, device=dev)
+
+    def decode_steps(n=4):
+        for i in range(n):
+            tr.decode_step(params, cache, first, seq + i, cfg)
+
+    prof["decode_4_steps"] = profile_call(decode_steps,
+                                          "llama4 decode, 4 steps")
+    del params, cache
+    torch.cuda.empty_cache()
+    return dict(rec, prefill_launches=prefill_launches, routes_differ=differ,
+                prefill_drops=drops,
+                **held, plain_prefill_s=plain_tm["prefill_s"],
+                plain_decode_s=plain_tm["decode_s"], tokens_agree=agree,
+                profile=prof)
+
+
+def moe_mixtral_phase(cfg, batch: int, seq: int, gen_len: int, seed: int):
+    """Phase 14c: mixtral-8x22b served at full width (``moe_serve``; every
+    layer windowed, so no kernel launch), its decode past the window (the
+    ring caches wrap: 4096 + 63 positions).  Then the decode's last logits
+    against a fresh forward over the prompt and the generated tokens (their
+    logits at the same position).  A decode step routes 4 tokens into 8
+    slots per expert and drops none, where a prefill drops the entries
+    past an expert's capacity, so this check runs at the capacity factor
+    E/top_k, where no entry drops (C = T): the prompt's prefill, the decode
+    replayed on the served tokens with the last step's routes recorded, and
+    the fresh forward; held on the lanes whose last token took the same
+    experts in every layer.  The served prefill's drops are logged."""
+    import torch
+
+    from repro_torch.models import transformer as tr
+
+    dev = torch.device("cuda")
+    params, prompts, tokens, rec = moe_serve(cfg, batch, seq, gen_len, seed)
+    toks = torch.as_tensor(prompts, dtype=torch.long, device=dev)
+    gen = torch.as_tensor(tokens, dtype=torch.long, device=dev)
+    cap = seq + gen_len
+    with recorded_routes() as routes_s:
+        tr.prefill(params, toks, cfg, pad_cache_to=cap)
+    drops = [int((~keep).sum()) for _, keep, _ in routes_s]
+    last = [b * seq + seq - 1 for b in range(batch)]
+    dropped_last = sorted({b for _, keep, _ in routes_s for b in range(batch)
+                           if not bool(keep[last[b]].all())})
+    log(f"[moe] 14c the served prefill ({batch * seq} tokens, capacity "
+        f"{routes_s[0][2]}) drops {drops} (token, choice) entries per layer "
+        f"of {batch * seq * cfg.moe.top_k}; lanes whose last prompt token "
+        f"lost a choice: {dropped_last}")
+    del routes_s
+    cf = cfg.moe.n_experts / cfg.moe.top_k
+    chk = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cf))
+    with recorded_routes() as routes_c:
+        _, cache = tr.prefill(params, toks, chk, pad_cache_to=cap)
+    for i in range(gen_len - 2):
+        tr.decode_step(params, cache, gen[:, i], seq + i, chk)
+    last_pos = seq + gen_len - 2
+    with recorded_routes() as routes_d:
+        logits_d, cache = tr.decode_step(params, cache, gen[:, gen_len - 2],
+                                         last_pos, chk)
+    ring = cache["local_k"].shape[2]
+    del cache
+    full = torch.cat([toks, gen], dim=1)                    # [B, seq + gen]
+    fresh_cfg = dataclasses.replace(chk, q_chunk=FRESH_CHUNK,
+                                    k_chunk=FRESH_CHUNK)
+    with recorded_routes() as routes_f:
+        h, _ = tr.forward(params, full, fresh_cfg)
+    logits_f = (h[:, last_pos] @ params.embed.T).float()
+    del h
+    S = full.shape[1]
+    if not all(bool(keep.all())
+               for _, keep, _ in routes_c + routes_d + routes_f):
+        raise AssertionError(f"14c: an entry dropped at capacity factor {cf}")
+    log(f"[moe] 14c at capacity factor {cf} (nothing dropped): decode to "
+        f"position {last_pos} through ring caches of {ring} slots (window "
+        f"{cfg.window}) on the served tokens; fresh forward over {S} tokens "
+        f"in chunks of {FRESH_CHUNK}")
+    held = held_logits(
+        "14c decode's last logits vs a fresh forward", logits_d, logits_f,
+        same_routes(routes_d, routes_f, list(range(batch)),
+                    [b * S + last_pos for b in range(batch)]))
+    del params, logits_d, logits_f
+    torch.cuda.empty_cache()
+    return dict(rec, served_prefill_drops=drops,
+                served_last_token_dropped_lanes=dropped_last,
+                check_capacity_factor=cf, ring_slots=ring,
+                decode_positions=last_pos + 1, **held)
+
+
+def moe_phase(seed: int):
+    """Phase 14: ``flash_fwd`` alone at llama4's attention shape (14a), the
+    MoE layer alone at both archs' layer shapes (14d), then llama4 (14b)
+    and mixtral (14c) served at full width, one at a time on the card."""
+    import torch
+
+    from repro_torch.configs import lm as lm_configs
+
+    t = time.perf_counter()
+    log(f"[moe] phase 14 starts with {torch.cuda.memory_allocated() / 2**30:.2f}"
+        f" GiB allocated on the card")
+    llama4 = dataclasses.replace(
+        lm_configs.llama4_maverick(), use_pallas_attention=True,
+        n_layers=MOE_DEPTH["llama4-maverick-400b-a17b"])
+    mixtral = dataclasses.replace(
+        lm_configs.mixtral_8x22b(), use_pallas_attention=True,
+        n_layers=MOE_DEPTH["mixtral-8x22b"])
+    log(f"[moe] 14a: flash_fwd at llama4's attention shape ({llama4.n_heads} "
+        f"query heads over {llama4.n_kv_heads} KV heads)")
+    out = {"flash_fwd": flash_fwd_alone(llama4, LM_BATCH, LM_SEQ, seed)}
+    torch.cuda.empty_cache()
+    out["alone"] = {c.name: moe_alone(c, seed) for c in (llama4, mixtral)}
+    out["llama4"] = moe_llama4_phase(llama4, LM_BATCH, LM_SEQ, LM_GEN, seed)
+    out["mixtral"] = moe_mixtral_phase(mixtral, LM_BATCH, LM_SEQ, LM_GEN, seed)
+    out["launches"] = out["llama4"]["launches"]
+    out["seconds"] = time.perf_counter() - t
+    log(f"[moe] phase 14 in {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--side", type=int, default=96)
@@ -2898,6 +3344,10 @@ def main(argv=None) -> int:
     # -- 13. the sharded solver ------------------------------------------------
     report["sharded"] = sharded_phase(inst, labels, cfg, cut.cut_value,
                                       args.seed, out_dir)
+    # -- 14. MoE serving ------------------------------------------------------
+    report["moe"] = moe_phase(args.seed)
+    torch.cuda.empty_cache()
+
     for route in SHARD_ROUTES:
         report["sharded_" + route] = {
             "launches": report["sharded"]["world_one"][route]["measured"][
@@ -2912,13 +3362,15 @@ def main(argv=None) -> int:
                        ("cuttree", "edge_reweight"),
                        ("sharded_halo_fused", "fused_ell_sweep"),
                        ("sharded_halo_unfused", "edge_reweight"),
-                       ("sharded_psum", "edge_reweight")):
+                       ("sharded_psum", "edge_reweight"),
+                       ("moe", "flash_fwd")):
         if report[path]["launches"][name] == 0:
             raise AssertionError(f"{name} was not launched on the {path} path")
 
     path_launches = {"main": launches, "serve": serve["launches"],
                      "batched_ell": report["batched_ell"]["launches"],
                      "lm": report["lm"]["launches"],
+                     "lm_moe": report["moe"]["launches"],
                      "delta_host": report["delta_host"]["launches"],
                      "delta_serve": report["delta_serve"]["launches"],
                      "presolve": report["presolve"]["launches"],

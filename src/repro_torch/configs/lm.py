@@ -3,9 +3,8 @@
 Every arch gets a ``config()`` (full size) and a ``reduced()`` (smoke-test
 size: same structural features — GQA ratio, MoE, window pattern, bias — at
 toy width/depth).  A copy of the JAX package's ``repro/configs/lm.py`` on the
-port's ``LMConfig`` (torch dtypes); the MoE configs build, but the port's
-model raises on them (ROADMAP.md queue 1, "The rest of the model
-stack")."""
+port's ``LMConfig`` (torch dtypes); the dense and the MoE archs
+(llama4-maverick, mixtral-8x22b) all build and serve."""
 from __future__ import annotations
 
 import dataclasses

@@ -1,4 +1,4 @@
-"""Architecture registry of the port: the LM family.
+"""Architecture registry of the port: the LM family, dense and MoE.
 
 ``ARCHS[arch_id]`` → ArchEntry(family, make_config, make_reduced, cells,
 shapes), as in the JAX package's ``repro/configs/registry.py``; ``--arch

@@ -6,6 +6,9 @@ The port of ``repro/launch/lm_serve.py`` (same flags, same printout, plus
   PYTHONPATH=src python -m repro_torch.launch.lm_serve --arch qwen2-1.5b \\
       --reduced --batch 4 --prompt-len 64 --gen 32 [--device cpu]
 
+Every arch of the port's registry serves, the MoE ones (``--arch
+mixtral-8x22b``, ``--arch llama4-maverick-400b-a17b``) included.
+
 Reports prefill latency and steady-state decode throughput, and greedy-
 decodes from the synthetic token stream (the tokens are synthetic, so the
 "text" is ids — the plumbing is what's demonstrated: batched requests, KV

@@ -9,13 +9,19 @@ full-attention forwards through the hand-written CUDA kernel
 (``kernels/csrc/flash_fwd.cu``).  The JAX package's ``lax.map`` and
 ``lax.scan`` over chunks are Python loops here.
 
-Not ported yet (ROADMAP queue 1, "The rest of the model stack"): the flash backward and its custom
-VJP, the MoE layers, ``embedding_bag*`` and ``mlp``.
+The MoE layers (``moe_layer``, ``moe_layer_grouped``, ``moe_aux_loss``)
+keep the reference's capacity arithmetic and order of work.  Their routes
+come from ``route_top_k``, which breaks ties between equal gates toward the
+lower expert index, as ``lax.top_k`` does (``torch.topk`` leaves the order
+of equal values undefined, and bf16 router logits tie often).
+
+Not ported yet (ROADMAP queue 1, "The rest of the model stack"): the flash
+backward and its custom VJP, ``embedding_bag*`` and ``mlp``.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -188,3 +194,126 @@ def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
            w2: torch.Tensor) -> torch.Tensor:
     """SwiGLU FFN: (silu(x@w1) ⊙ (x@w3)) @ w2."""
     return (F.silu(x @ w1) * (x @ w3)) @ w2
+
+
+class MoEParams(NamedTuple):
+    router: torch.Tensor   # [D, E]
+    w1: torch.Tensor       # [E, D, F]
+    w3: torch.Tensor       # [E, D, F]
+    w2: torch.Tensor       # [E, F, D]
+
+
+def route_top_k(gates: torch.Tensor, top_k: int):
+    """(gates [..., E], k) → (top gates [..., k], top expert ids [..., k]
+    int64), largest first, ties toward the lower expert index as
+    ``lax.top_k`` gives them: a stable descending sort keeps equal gates in
+    index order."""
+    vals, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
+    return vals[..., :top_k], idx[..., :top_k]
+
+
+class MoERoutes(NamedTuple):
+    """Where each (token, choice) of ``moe_routes`` goes; the leading dims
+    are x's (none, or the groups of ``moe_layer_grouped``)."""
+    gates: torch.Tensor     # [..., T, k] float32, renormalized over the k
+    experts: torch.Tensor   # [..., T, k] int64
+    keep: torch.Tensor      # [..., T·k] bool: rank < capacity
+    slot: torch.Tensor      # [..., T·k] int64: e·C + rank (e·C if dropped)
+    capacity: int           # C, slots per expert
+
+
+def moe_routes(x: torch.Tensor, router: torch.Tensor, top_k: int,
+               capacity_factor: float = 1.25) -> MoERoutes:
+    """The routes of x [..., T, D]: router softmax in float32 over ``x @
+    router`` (in x's dtype), the renormalized top-k (``route_top_k``), then
+    each (token, choice)'s rank among its expert's entries in token-major
+    order, by a stable sort of the expert ids and ``searchsorted`` starts;
+    entries at rank ≥ C are dropped (GShard semantics)."""
+    T = x.shape[-2]
+    E = router.shape[1]
+    C = int(capacity_factor * top_k * T / E)     # the reference's Python ints
+    C = max(8, -(-C // 8) * 8)
+    gates = torch.softmax((x @ router).float(), dim=-1)
+    top_gates, top_idx = route_top_k(gates, top_k)
+    top_gates = top_gates / top_gates.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    flat_e = top_idx.reshape(*top_idx.shape[:-2], -1)        # [..., T·k]
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    sorted_e = torch.gather(flat_e, -1, order)
+    experts = torch.arange(E, dtype=flat_e.dtype, device=flat_e.device)
+    starts = torch.searchsorted(
+        sorted_e, experts.expand(*flat_e.shape[:-1], E).contiguous())
+    pos = torch.arange(flat_e.shape[-1], device=flat_e.device)
+    rank = torch.empty_like(flat_e).scatter_(
+        -1, order, pos - torch.gather(starts, -1, sorted_e))
+    keep = rank < C
+    slot = flat_e * C + torch.where(keep, rank, 0)
+    return MoERoutes(top_gates, top_idx, keep, slot, C)
+
+
+def _experts(xe: torch.Tensor, p: MoEParams) -> torch.Tensor:
+    """The SwiGLU experts on their slots: xe [E, C, D] → [E, C, D]."""
+    h = torch.bmm(xe, p.w1)
+    g = torch.bmm(xe, p.w3)
+    return torch.bmm(F.silu(h) * g, p.w2)
+
+
+def moe_layer(x: torch.Tensor, p: MoEParams, top_k: int,
+              capacity_factor: float = 1.25) -> torch.Tensor:
+    """Scatter-based token dispatch (no [T, E, C] one-hot).
+
+    x: [T, D] (tokens flattened), routed by ``moe_routes``.  Every kept
+    slot receives exactly one entry, so the reference's scatter-add into
+    zeros is an indexed assignment of the kept entries here (no atomics).
+    The gates are cast to x's dtype before the combine product, then the k
+    choices are summed."""
+    T, D = x.shape
+    E = p.router.shape[1]
+    r = moe_routes(x, p.router, top_k, capacity_factor)
+    C = r.capacity
+    token = torch.arange(T * top_k, device=x.device) // top_k
+    xe = x.new_zeros((E * C, D))
+    xe[r.slot[r.keep]] = x[token[r.keep]]
+    ye = _experts(xe.view(E, C, D), p).reshape(E * C, D)
+    gathered = ye[r.slot]                                # [T·k, D]
+    gathered = gathered * (r.keep * r.gates.reshape(-1)).to(x.dtype)[:, None]
+    return gathered.reshape(T, top_k, D).sum(dim=1)
+
+
+def moe_layer_grouped(x: torch.Tensor, p: MoEParams, top_k: int,
+                      capacity_factor: float = 1.25,
+                      n_groups: int = 1) -> torch.Tensor:
+    """Group-local MoE dispatch (GShard-style grouping): the T tokens split
+    into ``n_groups`` groups, each routing into its own per-expert capacity
+    buffers (C from the group's Tg tokens) against all E experts.
+
+    x: [T, D] with T divisible by n_groups."""
+    T, D = x.shape
+    E = p.router.shape[1]
+    G = n_groups
+    Tg = T // G
+    r = moe_routes(x.reshape(G, Tg, D), p.router, top_k, capacity_factor)
+    C = r.capacity
+    group = torch.arange(G, device=x.device)[:, None]
+    slot = (group * (E * C) + r.slot).reshape(-1)            # into [G·E·C]
+    token = (group * Tg + torch.arange(Tg * top_k, device=x.device) // top_k
+             ).reshape(-1)
+    keep = r.keep.reshape(-1)
+    xe = x.new_zeros((G * E * C, D))
+    xe[slot[keep]] = x[token[keep]]
+    # [G, E, C, D] → the experts over [E, G·C, D] → back
+    xe = xe.view(G, E, C, D).transpose(0, 1).reshape(E, G * C, D)
+    ye = _experts(xe, p).view(E, G, C, D).transpose(0, 1).reshape(G * E * C, D)
+    gathered = ye[slot]
+    gathered = gathered * (keep * r.gates.reshape(-1)).to(x.dtype)[:, None]
+    return gathered.reshape(T, top_k, D).sum(dim=1)
+
+
+def moe_aux_loss(x: torch.Tensor, router: torch.Tensor,
+                 top_k: int) -> torch.Tensor:
+    """Switch/GShard load-balance auxiliary loss (float32 scalar)."""
+    E = router.shape[1]
+    gates = torch.softmax((x @ router).float(), dim=-1)
+    _, top_idx = route_top_k(gates, top_k)
+    me = gates.mean(dim=0)                               # mean gate per expert
+    ce = F.one_hot(top_idx[:, 0], E).float().mean(dim=0)  # top-1 load
+    return E * (me * ce).sum()

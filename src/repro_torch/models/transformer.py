@@ -1,5 +1,5 @@
-"""LM-family transformer, inference half: dense GQA layers with RoPE and
-sliding-window patterns, prefill and KV-cache decode (PyTorch).
+"""LM-family transformer, inference half: dense and MoE GQA layers with
+RoPE and sliding-window patterns, prefill and KV-cache decode (PyTorch).
 
 The port of ``repro/models/transformer.py`` for one device.  ``LMConfig``
 and ``MoECfg`` keep the JAX package's fields and defaults, so one kwargs dict
@@ -7,18 +7,22 @@ builds both sides of a parity test (``dtype`` may be given as a torch,
 numpy or JAX dtype, or its name; it is stored as a torch dtype).
 ``use_pallas_attention`` routes the prefill attention of full-attention
 layers through the hand-written CUDA kernel.  ``remat`` and ``seq_parallel``
-are kept as fields and have no effect on one device.
+are kept as fields and have no effect on one device.  MoE layers dispatch
+through ``layers.moe_layer`` (one device has no token groups, so the
+grouped dispatch is not taken, as in the reference without a mesh), add
+the shared expert where the config has one, and ``forward`` returns the
+layers' summed load-balance loss.
 
 The parameters live in a ``Transformer`` module under the JAX pytree's
 names, stacked along a leading layer axis (``embed``, ``final_norm``,
-``layers.wq`` as (L, D, H·Dh), ...), so carrying the JAX package's weights
-over (``params_from_numpy``) is a name-for-name copy.  The layers run in a
-Python loop; local ('L') layers keep window-sized ring caches aligned to
-decode's ``pos % w``, global layers full-length caches, and decode updates
-the caches in place.
+``layers.wq`` as (L, D, H·Dh), ``layers.w1`` as (L, E, D, F) for MoE, ...),
+so carrying the JAX package's weights over (``params_from_numpy``) is a
+name-for-name copy.  The layers run in a Python loop; local ('L') layers
+keep window-sized ring caches aligned to decode's ``pos % w``, global layers
+full-length caches, and decode updates the caches in place.
 
-Not ported yet (ROADMAP queue 1, "The rest of the model stack"): MoE layers, ``lm_loss`` and
-training, sharding (``rules``), ``abstract_params``/``param_shardings``.
+Not ported yet (ROADMAP queue 1, "The rest of the model stack"): ``lm_loss``
+and training, sharding (``rules``), ``abstract_params``/``param_shardings``.
 """
 from __future__ import annotations
 
@@ -31,10 +35,6 @@ import torch
 from torch import nn
 
 from . import layers as L
-
-_NOT_PORTED_MOE = ("MoE layers are not ported yet (ROADMAP.md queue 1, \"The "
-                   "rest of the model stack\": MoE)")
-
 
 def as_torch_dtype(dtype) -> torch.dtype:
     """A torch dtype from a torch, numpy or JAX dtype, or a dtype's name."""
@@ -108,6 +108,19 @@ class LMConfig:
         per_layer = attn + ffn + 2 * D
         return self.n_layers * per_layer + V * D + D
 
+    def active_param_count(self) -> int:
+        """Per-token active params (MoE: top_k experts only) for MODEL_FLOPS."""
+        if not self.moe:
+            return self.param_count()
+        D, F, V = self.d_model, self.d_ff, self.vocab
+        H, KV, Dh = self.n_heads, self.n_kv_heads, self.d_head
+        attn = D * H * Dh + 2 * D * KV * Dh + H * Dh * D
+        ffn = self.moe.top_k * 3 * D * F + D * self.moe.n_experts
+        if self.moe.shared_expert:
+            ffn += 3 * D * F
+        per_layer = attn + ffn + 2 * D
+        return self.n_layers * per_layer + V * D + D
+
 
 # ---------------------------------------------------------------------------
 # Parameters
@@ -148,19 +161,13 @@ def param_shapes(cfg: LMConfig):
     }
 
 
-def _require_dense(cfg: LMConfig) -> None:
-    if cfg.moe:
-        raise NotImplementedError(_NOT_PORTED_MOE)
-
-
 class Transformer(nn.Module):
-    """The parameters of a dense LM under the JAX pytree's names, stacked
-    along a leading layer axis; its values are uninitialized until
+    """The parameters of a dense or MoE LM under the JAX pytree's names,
+    stacked along a leading layer axis; its values are uninitialized until
     ``init_params`` or ``params_from_numpy`` fill them."""
 
     def __init__(self, cfg: LMConfig, device="cuda"):
         super().__init__()
-        _require_dense(cfg)
         self.cfg = cfg
         shapes = param_shapes(cfg)
 
@@ -179,12 +186,19 @@ class Transformer(nn.Module):
         return {name: p[i] for name, p in self.layers.items()}
 
 
+# elements of one float32 draw of init_params (1 GiB)
+_INIT_CHUNK = 1 << 28
+
+
 def init_params(cfg: LMConfig, generator: Optional[torch.Generator] = None,
                 device="cuda") -> Transformer:
     """Random weights with the JAX init's distribution: N(0, 1)/√fan_in
     drawn in float32 and cast (fan_in the second-to-last dim, the last for
     1-D), norm gains 0 (rms_norm applies 1 + w).  The numbers come from
-    ``generator`` (a seeded one on ``device`` when None), not JAX's."""
+    ``generator`` (a seeded one on ``device`` when None), not JAX's.  Each
+    parameter is drawn in slices of at most 1 GiB of float32, so the
+    temporary stays small beside the weights (llama4's expert stack of one
+    layer is 21 GB in float32)."""
     params = Transformer(cfg, device)
     dev = params.embed.device
     if generator is None:
@@ -195,10 +209,13 @@ def init_params(cfg: LMConfig, generator: Optional[torch.Generator] = None,
                 p.zero_()
                 continue
             fan_in = p.shape[-2] if p.dim() >= 2 else p.shape[-1]
-            x = torch.randn(p.shape, generator=generator, dtype=torch.float32,
-                            device=dev)
-            p.copy_(x.div_(math.sqrt(max(1, fan_in))))
-            del x
+            flat = p.view(-1)
+            for a in range(0, flat.numel(), _INIT_CHUNK):
+                x = torch.randn(min(_INIT_CHUNK, flat.numel() - a),
+                                generator=generator, dtype=torch.float32,
+                                device=dev)
+                flat[a:a + x.numel()].copy_(x.div_(math.sqrt(max(1, fan_in))))
+                del x
     return params
 
 
@@ -265,18 +282,33 @@ def _attn_block(x, lp, cfg: LMConfig, kind: str, positions, k_cache=None,
 
 
 def _ffn_block(x, lp, cfg: LMConfig):
-    _require_dense(cfg)
+    """Returns (x + ffn(x), aux loss): the MoE load-balance loss as a
+    float32 scalar, 0.0 where the layer has none."""
+    B, S, D = x.shape
     h = L.rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
-    return x + L.swiglu(h, lp["w1"], lp["w3"], lp["w2"])
+    aux = 0.0
+    if not cfg.moe:
+        return x + L.swiglu(h, lp["w1"], lp["w3"], lp["w2"]), aux
+    hf = h.reshape(B * S, D)
+    p = L.MoEParams(router=lp["router"], w1=lp["w1"], w3=lp["w3"],
+                    w2=lp["w2"])
+    y = L.moe_layer(hf, p, cfg.moe.top_k, cfg.moe.capacity_factor)
+    if cfg.moe.aux_loss_weight:
+        aux = L.moe_aux_loss(hf, lp["router"], cfg.moe.top_k)
+    if cfg.moe.shared_expert:
+        y = y + L.swiglu(hf, lp["s1"], lp["s3"], lp["s2"])
+    return x + y.reshape(B, S, D), aux
 
 
 def _layer(x, lp, cfg, kind, positions, cache=None, cache_len=None):
+    """Returns (x, (k, v), aux loss)."""
     if cache is None:
         x, kv = _attn_block(x, lp, cfg, kind, positions)
     else:
         x, kv = _attn_block(x, lp, cfg, kind, positions, k_cache=cache[0],
                             v_cache=cache[1], cache_len=cache_len)
-    return _ffn_block(x, lp, cfg), kv
+    x, aux = _ffn_block(x, lp, cfg)
+    return x, kv, aux
 
 
 def _embed(params: Transformer, tokens: torch.Tensor, cfg: LMConfig):
@@ -284,13 +316,15 @@ def _embed(params: Transformer, tokens: torch.Tensor, cfg: LMConfig):
 
 
 def forward(params: Transformer, tokens: torch.Tensor, cfg: LMConfig):
-    """Token ids [B, S] → (final hidden states [B, S, D], aux loss 0)."""
+    """Token ids [B, S] → (final hidden states [B, S, D], the layers' aux
+    loss sum, float32)."""
     B, S = tokens.shape
     x = _embed(params, tokens, cfg)
     positions = torch.arange(S, device=x.device).expand(B, S)
-    for i, kind in enumerate(cfg.layer_kinds()):
-        x, _ = _layer(x, params.layer(i), cfg, kind, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, kind in enumerate(cfg.layer_kinds()):
+        x, _, a = _layer(x, params.layer(i), cfg, kind, positions)
+        aux = aux + a
     return L.rms_norm(x, params.final_norm, cfg.norm_eps), aux
 
 
@@ -345,9 +379,9 @@ def decode_step(params: Transformer, cache, tokens: torch.Tensor,
     positions = torch.full((B, 1), cache_len, dtype=torch.long, device=x.device)
     for i, (kind, (kname, idx)) in enumerate(zip(cfg.layer_kinds(),
                                                  _cache_layout(cfg))):
-        x, _ = _layer(x, params.layer(i), cfg, kind, positions,
-                      cache=(cache[f"{kname}_k"][idx], cache[f"{kname}_v"][idx]),
-                      cache_len=cache_len)
+        kv = (cache[f"{kname}_k"][idx], cache[f"{kname}_v"][idx])
+        x, _, _ = _layer(x, params.layer(i), cfg, kind, positions, cache=kv,
+                         cache_len=cache_len)
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     return (x[:, 0] @ params.embed.T).float(), cache
 
@@ -378,7 +412,7 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: LMConfig,
                     (n, B, length, cfg.n_kv_heads, cfg.d_head),
                     dtype=cfg.dtype, device=dev)
     for i, (kind, (kname, idx)) in enumerate(zip(cfg.layer_kinds(), layout)):
-        x, (k, v) = _layer(x, params.layer(i), cfg, kind, positions)
+        x, (k, v), _ = _layer(x, params.layer(i), cfg, kind, positions)
         for part, t in (("k", k), ("v", v)):
             dst = cache[f"{kname}_{part}"][idx]
             if kname == "global":

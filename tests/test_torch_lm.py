@@ -442,6 +442,20 @@ def test_params_init_distribution_and_carry_over():
     bad["layers"]["wq"] = bad["layers"]["wq"][:, :, :-1]
     with pytest.raises(ValueError, match="layers.wq"):
         tr.params_from_numpy(bad, cfg, device="cpu")
+    # the MoE trees carry over name for name too: the router, the w1/w3/w2
+    # expert stacks and llama4's shared expert s1/s3/s2
+    for arch, names in (("mixtral-8x22b", {"router", "w1", "w3", "w2"}),
+                        ("llama4-maverick-400b-a17b",
+                         {"router", "w1", "w3", "w2", "s1", "s3", "s2"})):
+        jparams = jtr.init_params(jlm.reduced_lm(arch), jax.random.PRNGKey(2))
+        carried = _carry(jparams, plm.reduced_lm(arch))
+        assert names <= set(carried.layers)
+        assert carried.layers["w1"].dim() == 4          # (L, E, D, F)
+        for name, p in carried.named_parameters():
+            node = jparams
+            for part in name.split("."):
+                node = node[part]
+            np.testing.assert_array_equal(p.numpy(), _np(node))
 
 
 @pytest.mark.parametrize("arch", LM_IDS)
@@ -484,14 +498,15 @@ def test_lm_config_fields_and_defaults_match_jax():
         assert tr.LMConfig(**dict(_WINDOWED, dtype=dt)).dtype == torch.float32
 
 
-def test_unported_archs_and_moe_raise():
+def test_unported_archs_raise():
     for arch in ("gcn-cora", "din", "pirmcut"):
         with pytest.raises(KeyError, match="ROADMAP"):
             registry.get(arch)
     with pytest.raises(KeyError, match="unknown arch"):
         registry.get("nope")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.init_params(plm.reduced_lm("mixtral-8x22b"), device="cpu")
+    # the MoE archs are ported: their parameters build
+    params = tr.init_params(plm.reduced_lm("mixtral-8x22b"), device="cpu")
+    assert {"router", "w1", "w3", "w2"} <= set(params.layers)
 
 
 def test_token_stream_matches_jax_copy():
