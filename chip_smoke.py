@@ -55,9 +55,11 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    first burst of each tenant cold and the later ones warm.  It runs twice.
    The measured run keeps PyTorch's defaults, as a user runs the server:
    its times and memory are the phase's numbers, and its cuts stay within
-   1e-2 of the plain path's (``index_add_`` sums with atomics in no fixed
-   order, on both paths, and the adaptive schedule amplifies that up to its
-   ``irls_tol``).  The checked run serves the same traffic with
+   1e-2 of the plain path's.  Its first (cold) volume batch is served
+   again by a fresh server, also with PyTorch's defaults: voltages, cuts
+   and sides bit-equal (the COO scatters and the sweep rounding sum in a
+   fixed order, with no atomics), the batch's wall logged.  The checked
+   run serves the same traffic with
    ``torch.use_deterministic_algorithms(True)``: every served cut must
    equal, within rel 1e-4, the cut of the same batch solved through
    ``solve_batch`` on the plain path on the card, with the same warm start,
@@ -159,9 +161,11 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
        exactly (rel 1e-9 of a fresh exact build, some edges reused) and by
        IRLS in tests/test_drift.py's strong config (rel 1e-6).
     d. ``CutTreeService`` (IRLS, refined) on 12c's instance: the first
-       query builds (every tree edge at its pair's Dinic cut, rel 1e-9;
-       every pair at most its exact cut, the pairs more than 1e-3 below it
-       logged; the global min cut within rel 1e-3), the next 1,000 hit the
+       query builds, and a fresh service builds the same tree again (equal
+       parent, weight, sides and acceptance order: no atomics on the
+       path); every tree edge at its pair's Dinic cut (rel 1e-9), every
+       pair at most its exact cut (the pairs more than 1e-3 below it
+       logged), the global min cut within rel 1e-3; the next 1,000 hit the
        cache, the drift is ``"repaired"`` (rel 1e-9 of the fresh build),
        the same weights again ``"unchanged"``; then ``launch.cut_tree
        --side 10 --solver irls --refine --verify-pairs 25``
@@ -214,6 +218,35 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
        position 4158 through the wrapped ring caches, and its last logits
        are held against a fresh forward over the prompt and the generated
        tokens on the same held-lanes rule.
+
+15. The sharded server and the perf gate.
+    a. ``MinCutServer(backend="sharded")`` in a world of one over NCCL at
+       full width: 13a's 96³ instance, phase 4's labels (registered with
+       the topology) and kernel config at 10 IRLS iterations, the fused
+       halo schedule, one batch a request.  One tenant's burst of 4: the
+       undrifted weights, then 3 drifts of 1% of the edges (σ 0.05):
+       every served cut within rel 1e-5 of the session's own sharded
+       solve of the same weights, the first within rel 1e-5 of 13a's
+       fused-halo cut; ``fused_ell_sweep`` once per IRLS iteration of
+       every request and no other launch; 4 ``sharded_excluded`` warm
+       lookups; wall, solves/s and the delta refill's counts.
+    b. The sharded server over four spawned ranks on the one card (gloo
+       over CUDA tensors, 13b's spawn, a timeout on every rank): rank 0
+       serves a burst of 4 at 48³ in the server's default config with
+       ``use_pallas`` and the halo sweep unfused (the build that runs
+       ``edge_reweight`` on each shard), ranks 1–3 run ``follow_sharded``.
+       The served two-level cuts equal a world-one sharded session's on
+       the same weights (rel 1e-5); ``edge_reweight`` once per IRLS
+       iteration a rank; every follower leaves its loop on shutdown.
+    c. The perf gate: phase 4's host solve with ``profile=True`` on the
+       kernel route and the plain route: the same count (the terms, and
+       the totals at each route's PCG trace), at most 1.05× the card's
+       HBM rate and a roofline fraction in (0, 1.05], each term beside
+       the kernel table's bound (rel 1e-6); two payloads (15a's serving,
+       this solve; ``obs.bench_snapshot()`` under ``"obs"``) into a
+       history under ``chiprun_out/``, and ``launch.bench_diff
+       --from-payload`` as a subprocess: exit 0 with 0 regressed on an
+       unchanged rerun, exit 1 on 15a's payload with its wall doubled.
 
 TF32 is switched off for matmuls and cuDNN, so every float32 product is a
 full float32 product.  The last two lines of standard output are the
@@ -894,6 +927,40 @@ def serve_run(tenants, rounds: int, seed: int, rounding: str = "sweep",
                 peak=peak, stats=stats, sessions=sessions)
 
 
+def serve_cold_again(name: str, inst, ws, first) -> dict:
+    """Phase 8's repair check: ``ws`` (a tenant's first, cold burst) served
+    again through a fresh server in the measured run's config, with
+    PyTorch's defaults: the voltages and cuts must equal ``first``, the
+    measured run's results, bit for bit.  Logs the batch's wall (session
+    build, plan upload and the cold solve) and its IRLS share."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import MinCutServer
+
+    with MinCutServer(cfg=server_cfg(True), rounding="sweep",
+                      device="cuda") as srv:
+        key = srv.register(inst)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = [f.result(timeout=900)
+               for f in srv.submit_many(key, ws, tenant=name)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    same_v = all(np.array_equal(a.voltages, b.voltages)
+                 for a, b in zip(got, first))
+    same_cut = all(a.cut_value == b.cut_value
+                   and np.array_equal(a.cut.in_source, b.cut.in_source)
+                   for a, b in zip(got, first))
+    irls = float(np.median([r.timings["irls_wall"] for r in got]))
+    log(f"[serve] {name}'s cold batch of {len(ws)} served again: voltages "
+        f"bit-equal {same_v}, cuts and sides equal {same_cut}; batch wall "
+        f"{wall:.3f} s, IRLS wall {irls:.3f} s")
+    if not (same_v and same_cut):
+        raise AssertionError(f"{name}: the cold batch served twice differs")
+    return dict(wall_s=wall, irls_wall_s=irls, bit_equal=True)
+
+
 def against_plain(run, rounding: str = "sweep"):
     """Every served batch again through ``solve_batch`` on the plain path on
     the card, same lanes, same warm start (the tenant's previous burst's
@@ -935,16 +1002,19 @@ def serving_phase(tenants, rounds: int, seed: int):
     for k, xs in tm.items():
         log(f"[serve] per-request {k} s: median {float(np.median(xs)):.3f}, "
             f"max {max(xs):.3f}")
-    # index_add_ sums with atomics, in no fixed order, on both paths, and
-    # the adaptive schedule's stops amplify roundoff up to its own irls_tol
-    # of 1e-3: a plain run disagrees with itself by ~1e-3 here.  This
-    # comparison bounds the disagreement (10 × irls_tol); the exact one is
-    # the checked run's.
+    # the repair: the COO scatters sum in a fixed order, so the first (cold)
+    # volume batch served again, by a fresh server and without
+    # deterministic mode, gives the same bits
+    name = next(iter(tenants))
+    again = serve_cold_again(name, tenants[name], meas["sent"][name][0],
+                             meas["served"][name][0])
+    # the kernel vs plain gap, bounded by 10 × the adaptive schedule's
+    # irls_tol of 1e-3; the exact comparison is the checked run's
     spread = against_plain(meas)
     for name, (gap, sk, sp) in spread.items():
-        log(f"[serve] measured {name}: cuts vs plain path (both with atomic "
-            f"scatters) max rel {gap:.3e} (bound 1e-2); PCG steps served "
-            f"{sk}, plain {sp}")
+        log(f"[serve] measured {name}: cuts vs plain path (both with "
+            f"PyTorch's defaults) max rel {gap:.3e} (bound 1e-2); PCG steps "
+            f"served {sk}, plain {sp}")
         if not gap <= 1e-2:
             raise AssertionError(f"{name}: measured served cut vs plain rel "
                                  f"{gap}")
@@ -982,6 +1052,7 @@ def serving_phase(tenants, rounds: int, seed: int):
     prof = profile_call(lambda: sess.solve_batch(ws, rounding=None),
                         f"one batch of {len(ws)}")
     return dict(wall_s=meas["wall"], launches=meas["launches"],
+                cold_again=again,
                 checked_launches=chk["launches"], peak_bytes=meas["peak"],
                 stats={k: stats[k] for k in ("completed", "batches",
                                              "batch_sizes", "flush_reasons",
@@ -2188,7 +2259,8 @@ def cuttree_exact_phase(side: int, seed: int):
 
 def cuttree_service_phase(ctx, seed: int, sink: str, out_dir: Path):
     """Phase 12d: ``CutTreeService`` on 12c's instance through the kernel:
-    the first query builds the refined IRLS tree (held against Dinic edge
+    the first query builds the refined IRLS tree (built twice, the second
+    time by a fresh service: the same tree; held against Dinic edge
     by edge and against 12c's exact tree on every pair), the next 1,000
     hit the cache, the drift is repaired, the same weights again leave it
     unchanged; then the cut_tree and obs CLIs as subprocesses."""
@@ -2206,6 +2278,19 @@ def cuttree_service_phase(ctx, seed: int, sink: str, out_dir: Path):
         "service: first query, a refined IRLS tree",
         lambda: (svc.min_cut(key, 0, inst.n - 1), svc.tree(key))[1],
         cfg.n_irls)
+    # the repair: built again by a fresh service, the refined tree is the
+    # same (no atomics in the solves' scatters or the sweep rounding)
+    svc2 = CutTreeService(cfg=cfg, solver="irls", refine=True, device="cuda")
+    key2 = svc2.register(inst)
+    twice, _, _ = built_tree(
+        "service: the same refined tree again",
+        lambda: (svc2.min_cut(key2, 0, inst.n - 1), svc2.tree(key2))[1],
+        cfg.n_irls)
+    log(f"[cuttree] refined tree built twice: equal {same_tree(refined, twice)}"
+        f" (parent, weight, sides, acceptance order)")
+    if not same_tree(refined, twice):
+        raise AssertionError("the refined tree differs between two builds")
+    del svc2, twice
     t = time.perf_counter()
     edge_rel = max(abs(w - dinic_pair(inst, i, p)) / abs(w)
                    for i, p, w in refined.edges())
@@ -2566,32 +2651,30 @@ def _sharded_rank(rank: int, store: str, out_path: str, seed: int,
     dist.destroy_process_group()
 
 
-def sharded_ranks_phase(cfg, world_one: dict, seed: int, out_dir: Path):
-    """Phase 13b: a world of four ranks on the one card at 48³ (spawned
-    processes, gloo over CUDA tensors: NCCL refuses two ranks on one
-    device), both schedules and the int8 halo; cuts against 13a's world
-    one (rel 1e-5), collectives per CG step as in the CPU tests, each
-    rank's kernels held at its shard's shapes."""
+def run_ranks(target, out_path: Path, args: tuple,
+              timeout_s: float = 600) -> float:
+    """``target(rank, store, out_path, *args)`` in SHARD_RANKS spawned
+    processes on the one card (one intra-op thread each: they share the
+    host), rendezvousing through a FileStore; every rank that outlives
+    ``timeout_s`` is killed, and a killed rank or a non-zero exit fails
+    the phase.  Returns the wall seconds."""
     import multiprocessing as mp
     import os
     import tempfile
 
-    _, p4 = box_labels(SHARD_SIDE)
-    cfg4 = shard_cfg(dataclasses.replace(cfg, n_blocks=p4))
     ctx = mp.get_context("spawn")
-    out_path = out_dir / "chip_smoke_sharded4.json"
     out_path.unlink(missing_ok=True)
     env_before = os.environ.get("OMP_NUM_THREADS")
     os.environ["OMP_NUM_THREADS"] = "1"      # four ranks share the host
     t = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        procs = [ctx.Process(target=_sharded_rank,
+        procs = [ctx.Process(target=target,
                              args=(r, os.path.join(tmp, "store"),
-                                   str(out_path), seed, cfg4))
+                                   str(out_path)) + tuple(args))
                  for r in range(SHARD_RANKS)]
         for p in procs:
             p.start()
-        deadline = time.perf_counter() + 600
+        deadline = time.perf_counter() + timeout_s
         for p in procs:
             p.join(max(1.0, deadline - time.perf_counter()))
         alive = [p for p in procs if p.is_alive()]
@@ -2602,11 +2685,23 @@ def sharded_ranks_phase(cfg, world_one: dict, seed: int, out_dir: Path):
         os.environ.pop("OMP_NUM_THREADS")
     else:
         os.environ["OMP_NUM_THREADS"] = env_before
-    wall = time.perf_counter() - t
     codes = [p.exitcode for p in procs]
     if alive or any(c != 0 for c in codes):
-        raise AssertionError(f"sharded ranks exited {codes} "
+        raise AssertionError(f"{target.__name__} ranks exited {codes} "
                              f"({len(alive)} killed at the deadline)")
+    return time.perf_counter() - t
+
+
+def sharded_ranks_phase(cfg, world_one: dict, seed: int, out_dir: Path):
+    """Phase 13b: a world of four ranks on the one card at 48³ (spawned
+    processes, gloo over CUDA tensors: NCCL refuses two ranks on one
+    device), both schedules and the int8 halo; cuts against 13a's world
+    one (rel 1e-5), collectives per CG step as in the CPU tests, each
+    rank's kernels held at its shard's shapes."""
+    _, p4 = box_labels(SHARD_SIDE)
+    cfg4 = shard_cfg(dataclasses.replace(cfg, n_blocks=p4))
+    out_path = out_dir / "chip_smoke_sharded4.json"
+    wall = run_ranks(_sharded_rank, out_path, (seed, cfg4))
     got = json.loads(out_path.read_text())
     for route, (schedule, comp) in SHARD_RANK_ROUTES.items():
         r = got[route]
@@ -3109,6 +3204,351 @@ def moe_phase(seed: int):
     return out
 
 
+# -- phase 15: the sharded server and the perf gate -------------------------
+
+# each sharded server's burst: the undrifted weights, then requests that
+# each drift DRIFT_FRAC of the edges from the one before (phase 11's walk)
+SHARD_SERVE_BURST = 4
+# 15b's grid side: 13b's 48 cut to 32, since the whole run at 48 took
+# 1,160 s of its 1,200 (15b 133 s of it; 47 s at 32)
+SHARD_SERVE_SIDE = 32
+# 15c: a served solve or a host solve may count at most this share above
+# the card's rates (a count above the peak is a wrong count)
+ROOF_SLACK = 1.05
+
+
+def sharded_traffic(inst, seed: int, burst: int = SHARD_SERVE_BURST):
+    """One tenant's burst: the instance's weights, then ``burst`` − 1
+    drifted ones (1% of the edges, σ 0.05, each from the one before)."""
+    import numpy as np
+
+    from repro_torch.core import Weights
+
+    rng = np.random.default_rng(seed)
+    c = np.asarray(inst.graph.weight, dtype=np.float64)
+    ws = [Weights(c, inst.s_weight, inst.t_weight)]
+    for _ in range(burst - 1):
+        c, _ = drift_edges(rng, c, DRIFT_FRAC)
+        ws.append(Weights(c, inst.s_weight, inst.t_weight))
+    return ws
+
+
+def sharded_server_phase(inst, labels, cfg, fused_cut: float, seed: int):
+    """Phase 15a: ``MinCutServer(backend="sharded")`` in a world of one
+    over NCCL at full width — 13a's instance, labels (registered with the
+    topology) and fused-halo kernel config — serving one tenant's burst
+    one request a batch; launch counters set to 0 just before the burst
+    and read just after.  Each served cut is held against the session's
+    own sharded solve of the same weights (rel 1e-5), the first against
+    13a's fused-halo cut (rel 1e-5)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed.collectives import release_world
+    from repro_torch.kernels import ops
+    from repro_torch.serve import MinCutServer
+
+    rc = shard_cfg(cfg)
+    ws = sharded_traffic(inst, seed + 15)
+    with MinCutServer(cfg=rc, backend="sharded", rounding="sweep",
+                      max_batch=1, device="cuda") as srv:
+        key = srv.register(inst, labels=labels)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t = time.perf_counter()
+        served = [f.result(timeout=900)
+                  for f in srv.submit_many(key, ws, tenant="volume")]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = dict(ops.launches)
+        stats = srv.stats()
+        sess = srv.cache.get(key)
+    t = time.perf_counter()
+    direct = [sess.solve(weights=w, rounding="sweep") for w in ws]
+    direct_s = time.perf_counter() - t
+    release_world()
+    want = dict(NO_LAUNCHES, fused_ell_sweep=len(ws) * rc.n_irls)
+    rels = [abs(a.cut_value - b.cut_value) / abs(b.cut_value)
+            for a, b in zip(served, direct)]
+    rel13 = abs(served[0].cut_value - fused_cut) / abs(fused_cut)
+    setup = served[0].timings.get("setup", 0.0)
+    refill = served[-1].telemetry["sharded_refill"]
+    tm = {k: [r.timings[k] for r in served]
+          for k in ("queue", "irls", "rounding", "total")}
+    log(f"[sharded serve] {len(ws)} requests in {wall:.2f} s "
+        f"({len(ws) / wall:.3f} solves/s; the first's setup {setup:.2f} s, "
+        f"then {(len(ws) - 1) / max(wall - tm['total'][0], 1e-9):.3f} "
+        f"solves/s); IRLS s {[round(x, 3) for x in tm['irls']]}; launches "
+        f"{launches} (expected {want}); warm {stats['warm']}; delta refill "
+        f"{refill}")
+    log(f"[sharded serve] cuts {[r.cut_value for r in served]} vs the "
+        f"session's {[r.cut_value for r in direct]} (rel max "
+        f"{max(rels):.2e}, tolerance 1e-5; {direct_s:.2f} s); first vs "
+        f"13a's fused halo {fused_cut!r}: rel {rel13:.2e} (tolerance 1e-5)")
+    if launches != want:
+        raise AssertionError(f"sharded serve launches {launches} != {want}")
+    if stats["warm"]["sharded_excluded"] != len(ws) or stats["failed"]:
+        raise AssertionError(f"sharded serve: warm {stats['warm']}, failed "
+                             f"{stats['failed']}")
+    if not (all(np.isfinite(r.voltages).all() for r in served)
+            and max(rels) <= 1e-5 and rel13 <= 1e-5):
+        raise AssertionError(f"sharded serve cuts: vs session {rels}, vs "
+                             f"13a {rel13}")
+    return dict(wall_s=wall, solves_per_sec=len(ws) / wall, setup_s=setup,
+                timings=tm, launches=launches, warm=stats["warm"],
+                refill=refill, cuts=[r.cut_value for r in served],
+                rel_session=max(rels), rel_13a=rel13,
+                pcg_total=sum(int(np.sum(r.pcg_iters)) for r in served),
+                telemetry=stats["telemetry"])
+
+
+def served_cfg():
+    """15b's config: the server's default one with ``use_pallas``, and the
+    halo sweep unfused — the sharded solver fuses the halo build under
+    ``fuse_edge_sweep`` whatever the layout (in both packages), and the
+    unfused build is the one that runs ``edge_reweight`` on each shard."""
+    return dataclasses.replace(server_cfg(True), fuse_edge_sweep=False)
+
+
+def _served_rank(rank: int, store: str, out_path: str, seed: int,
+                 side: int) -> None:
+    """One rank of 15b (a spawned process): rank 0 serves the burst, the
+    others follow; every rank writes what it launched."""
+    import datetime
+    import warnings
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.solver import Float32DivergenceWarning
+    from repro_torch.kernels import ops
+    from repro_torch.serve import MinCutServer, follow_sharded
+
+    warnings.simplefilter("ignore", Float32DivergenceWarning)
+    dist.init_process_group("gloo", store=dist.FileStore(store, SHARD_RANKS),
+                            rank=rank, world_size=SHARD_RANKS,
+                            timeout=datetime.timedelta(seconds=300))
+    torch.cuda.set_device(0)
+    ops.reset_launches()
+    t = time.perf_counter()
+    if rank == 0:
+        inst = segmentation_grid(side, seed)
+        ws = sharded_traffic(inst, seed + 16)
+        with MinCutServer(cfg=served_cfg(), backend="sharded",
+                          rounding="two_level", max_batch=1,
+                          device="cuda") as srv:
+            served = [f.result(timeout=500)
+                      for f in srv.submit_many(inst, ws, tenant="volume")]
+            stats = srv.stats()
+        out = {"cuts": [r.cut_value for r in served],
+               "irls_s": [r.timings["irls"] for r in served],
+               "pcg_iters": [r.pcg_iters.tolist() for r in served],
+               "warm": stats["warm"], "failed": stats["failed"]}
+    else:
+        out = {"follow": follow_sharded(device="cuda")}
+    torch.cuda.synchronize()
+    out.update(wall_s=time.perf_counter() - t, launches=dict(ops.launches))
+    Path(f"{out_path}.{rank}").write_text(json.dumps(out))
+    dist.destroy_process_group()
+
+
+def sharded_ranks_server_phase(seed: int, out_dir: Path,
+                               side: int = SHARD_SERVE_SIDE):
+    """Phase 15b: the sharded server over four spawned ranks on the one card
+    (gloo over CUDA tensors, 13b's spawn), rank 0 serving a burst at
+    ``side``³ and ranks 1–3 following; first the same burst
+    through a world-one sharded session on the same config, whose two-level
+    cuts the served ones must equal (rel 1e-5)."""
+    import warnings
+
+    from repro_torch.core import MinCutSession, Problem
+    from repro_torch.distributed.collectives import release_world
+    from repro_torch.distributed.solver import Float32DivergenceWarning
+
+    inst = segmentation_grid(side, seed)
+    ws = sharded_traffic(inst, seed + 16)
+    t = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", Float32DivergenceWarning)
+        sess = MinCutSession(Problem.build(inst, n_blocks=1), served_cfg(),
+                             backend="sharded", device="cuda")
+        one = [sess.solve(weights=w, rounding="two_level",
+                          delta_key="volume").cut_value for w in ws]
+    one_s = time.perf_counter() - t
+    release_world()
+    del sess
+    out_path = out_dir / "chip_smoke_served4.json"
+    wall = run_ranks(_served_rank, out_path, (seed, side), timeout_s=400)
+    ranks = [json.loads(Path(f"{out_path}.{r}").read_text())
+             for r in range(SHARD_RANKS)]
+    head = ranks[0]
+    want = dict(NO_LAUNCHES, edge_reweight=len(ws) * served_cfg().n_irls)
+    rels = [abs(a - b) / abs(b) for a, b in zip(head["cuts"], one)]
+    follows = [r["follow"] for r in ranks[1:]]
+    log(f"[sharded serve 4] {side}³, {len(ws)} requests: world "
+        f"one {one} in {one_s:.2f} s; four ranks served {head['cuts']} "
+        f"(rel max {max(rels):.2e}, tolerance 1e-5), IRLS s "
+        f"{[round(x, 2) for x in head['irls_s']]}, warm {head['warm']}; "
+        f"launches per rank {[r['launches'] for r in ranks]} (expected "
+        f"{want}); followers {follows}; {wall:.1f} s for the four ranks")
+    if any(r["launches"] != want for r in ranks):
+        raise AssertionError(f"served ranks launches "
+                             f"{[r['launches'] for r in ranks]} != {want}")
+    done = {"registrations": 1, "batches": len(ws), "solves": len(ws),
+            "failed": 0, "skipped": 0}
+    if any(f != done for f in follows) or head["failed"]:
+        raise AssertionError(f"followers {follows}, failed {head['failed']}")
+    if not (max(rels) <= 1e-5
+            and head["warm"]["sharded_excluded"] == len(ws)):
+        raise AssertionError(f"served ranks cuts vs world one: {rels}; warm "
+                             f"{head['warm']}")
+    return dict(side=side, world_one=one, world_one_s=one_s,
+                cuts=head["cuts"], rel_world_one=max(rels),
+                irls_s=head["irls_s"], pcg_iters=head["pcg_iters"],
+                wall_s=wall, rank_walls=[r["wall_s"] for r in ranks],
+                launches=head["launches"], follow=follows,
+                warm=head["warm"])
+
+
+def perf_gate_phase(inst, labels, n_blocks: int, cfg, kern: dict,
+                    served: dict, out_dir: Path):
+    """Phase 15c: phase 4's host solve with ``profile=True`` on the kernel
+    route and the plain route: the same count on both, rates under the
+    card's, each term beside the kernel table's bound; then two payloads
+    (15a's serving, this solve) into a history under ``chiprun_out/`` and
+    ``launch.bench_diff --from-payload`` on an unchanged rerun (exit 0, 0
+    regressed) and on 15a's payload with its wall doubled (exit 1)."""
+    import os
+
+    from repro_torch.core import MinCutSession, Problem
+    from repro_torch.obs import bench_snapshot
+    from repro_torch.obs.perf import history as hist
+    from repro_torch.obs.perf import profile as perf_profile
+
+    from repro_torch.kernels import ops
+
+    prob = Problem.build(inst, n_blocks=n_blocks, labels=labels)
+    tel, costs, launched = {}, {}, {}
+    for route, use_pallas in (("kernel", True), ("plain", False)):
+        sess = MinCutSession(prob, dataclasses.replace(
+            cfg, use_pallas=use_pallas), device="cuda", profile=True)
+        ops.reset_launches()
+        res = sess.solve(rounding="sweep")
+        launched[route] = dict(ops.launches)
+        tel[route] = dict(res.telemetry, cut_value=res.cut_value)
+        costs[route] = sess.program_costs()["host"]
+    want = host_launches_want(tel["kernel"]["pcg_per_iter"], block=True)
+    if launched != {"kernel": want, "plain": NO_LAUNCHES}:
+        raise AssertionError(f"profiled host solves launched {launched}, "
+                             f"want {want} on the kernel route")
+    shape = perf_profile.SolveShape(**costs["kernel"]["shape"])
+    recount = {r: perf_profile.solve_work(shape, len(t["pcg_per_iter"]),
+                                          t["pcg_total"])
+               for r, t in tel.items()}
+    same_trace = tel["kernel"]["pcg_per_iter"] == tel["plain"]["pcg_per_iter"]
+    for route, t in tel.items():
+        log(f"[perf] host solve, {route} route: {t['flops']:.6g} flops, "
+            f"{t['hbm_bytes']:.6g} bytes in {t['phases']['irls']:.3f} s of "
+            f"IRLS: {t['achieved_gflops']:.3f} GFLOP/s, "
+            f"{t['achieved_gbps']:.3f} GB/s, roofline fraction "
+            f"{t['roofline_fraction']:.4f}; PCG {t['pcg_per_iter']}")
+    # each term beside the bound the kernel table computed from the
+    # kernel's own tensors in phase 3
+    t_ms = {name: max(w["flops"] / perf_profile.PEAK_F32_FLOP_PER_S,
+                      w["hbm_bytes"] / perf_profile.HBM_BYTES_PER_S) * 1e3
+            for name, w in costs["kernel"]["terms"].items()}
+    table = {"matvec": "ell_spmv", "system": "fused_ell_sweep",
+             "precond": "block_diag_matvec"}
+    for name, w in costs["kernel"]["terms"].items():
+        beside = (f", kernel table {kern[table[name]]['bound_ms']:.4f} ms"
+                  if name in table else "")
+        log(f"[perf] term {name}: {w['flops']:.6g} flops, "
+            f"{w['hbm_bytes']:.6g} bytes: {t_ms[name]:.4f} ms at the card's "
+            f"rates{beside}")
+    table_rel = {name: abs(t_ms[name] - kern[k]["bound_ms"])
+                 / kern[k]["bound_ms"] for name, k in table.items()}
+    if costs["kernel"] != costs["plain"]:
+        raise AssertionError(f"the routes count differently: {costs}")
+    for route, t in tel.items():
+        # the telemetry scales a per-iteration average back up: equal to
+        # the count up to that division's rounding
+        if not all(abs(t[key] - recount[route][key])
+                   <= 1e-12 * recount[route][key]
+                   for key in ("flops", "hbm_bytes")):
+            raise AssertionError(f"{route}: telemetry {t['flops']} flops, "
+                                 f"count {recount[route]['flops']}")
+        if not (t["achieved_gbps"] <= ROOF_SLACK * 3350
+                and 0 < t["roofline_fraction"] <= ROOF_SLACK):
+            raise AssertionError(f"{route}: {t['achieved_gbps']} GB/s, "
+                                 f"roofline {t['roofline_fraction']}")
+    if same_trace and (tel["kernel"]["flops"], tel["kernel"]["hbm_bytes"]) \
+            != (tel["plain"]["flops"], tel["plain"]["hbm_bytes"]):
+        raise AssertionError("same PCG trace, other counts")
+    if max(table_rel.values()) > 1e-6:
+        raise AssertionError(f"terms vs the kernel table: {table_rel}")
+    log(f"[perf] the routes' PCG traces equal: {same_trace}; counts equal "
+        f"for equal traces; terms vs the kernel table's bounds max rel "
+        f"{max(table_rel.values()):.1e} (tolerance 1e-6)")
+
+    # -- the gate: two payloads, a history, bench_diff as a subprocess
+    k = tel["kernel"]
+    payloads = {
+        "chip_sharded_serve": dict(
+            name="chip_sharded_serve", cfg={"side": round(inst.n ** (1 / 3)),
+                                            "burst": SHARD_SERVE_BURST},
+            wall_s=served["wall_s"], solves_per_sec=served["solves_per_sec"],
+            pcg_total=served["pcg_total"], cut_value=served["cuts"][0],
+            obs=bench_snapshot()),
+        "chip_host_solve": dict(
+            name="chip_host_solve", cfg={"side": round(inst.n ** (1 / 3)),
+                                         "n_irls": cfg.n_irls},
+            irls_s=k["phases"]["irls"], pcg_total=k["pcg_total"],
+            cut_value=k["cut_value"], flops=k["flops"],
+            hbm_bytes=k["hbm_bytes"], achieved_gflops=k["achieved_gflops"],
+            achieved_gbps=k["achieved_gbps"],
+            roofline_fraction=k["roofline_fraction"], obs=bench_snapshot())}
+    history = out_dir / "chip_smoke_history.jsonl"
+    history.unlink(missing_ok=True)
+    files = []
+    for name, pl in payloads.items():
+        path = out_dir / f"chip_smoke_{name}.json"
+        path.write_text(json.dumps(pl))
+        files.append(str(path))
+        for _ in range(2):                  # a baseline of two runs
+            hist.append_history(pl, str(history))
+    slow = dict(payloads["chip_sharded_serve"],
+                wall_s=2 * served["wall_s"])
+    slow_path = out_dir / "chip_smoke_chip_sharded_serve_slow.json"
+    slow_path.write_text(json.dumps(slow))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = {}
+    for label, paths in (("rerun", files), ("doubled", [str(slow_path)])):
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.bench_diff",
+             "--from-payload", *paths, "--history", str(history)],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+        runs[label] = dict(rc=proc.returncode, stdout=proc.stdout,
+                           stderr=proc.stderr[-2000:])
+        log(f"[perf] bench_diff, {label}: exit {proc.returncode}; "
+            + " | ".join(line for line in proc.stdout.splitlines()
+                         if "regressed" in line))
+    ok_rerun = (runs["rerun"]["rc"] == 0
+                and runs["rerun"]["stdout"].count("0 regressed") == 2)
+    ok_slow = (runs["doubled"]["rc"] == 1
+               and "wall_s" in runs["doubled"]["stderr"])
+    if not (ok_rerun and ok_slow):
+        raise AssertionError(f"bench_diff: {runs}")
+    return dict(telemetry={r: {key: t[key] for key in (
+                    "flops", "hbm_bytes", "achieved_gflops", "achieved_gbps",
+                    "roofline_fraction", "pcg_per_iter", "cut_value")}
+                    | {"irls_s": t["phases"]["irls"]}
+                    for r, t in tel.items()},
+                terms=costs["kernel"]["terms"], shape=costs["kernel"]["shape"],
+                term_ms=t_ms, table_rel=table_rel, same_trace=same_trace,
+                bench_diff={k: v["rc"] for k, v in runs.items()},
+                launches=launched["kernel"])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--side", type=int, default=96)
@@ -3348,6 +3788,25 @@ def main(argv=None) -> int:
     report["moe"] = moe_phase(args.seed)
     torch.cuda.empty_cache()
 
+    # -- 15. the sharded server and the perf gate --------------------------------
+    import warnings
+
+    from repro_torch.distributed.solver import Float32DivergenceWarning
+
+    t = time.perf_counter()
+    fused_cut = report["sharded"]["world_one"]["halo_fused"]["measured"]["cut"]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", Float32DivergenceWarning)
+        report["sharded_serve"] = sharded_server_phase(inst, labels, cfg,
+                                                       fused_cut, args.seed)
+        torch.cuda.empty_cache()
+        report["sharded_serve4"] = sharded_ranks_server_phase(args.seed,
+                                                              out_dir)
+    report["perf"] = perf_gate_phase(inst, labels, n_blocks, cfg, kern,
+                                     report["sharded_serve"], out_dir)
+    report["phase15_s"] = time.perf_counter() - t
+    log(f"[phase 15] {report['phase15_s']:.1f} s")
+
     for route in SHARD_ROUTES:
         report["sharded_" + route] = {
             "launches": report["sharded"]["world_one"][route]["measured"][
@@ -3363,7 +3822,11 @@ def main(argv=None) -> int:
                        ("sharded_halo_fused", "fused_ell_sweep"),
                        ("sharded_halo_unfused", "edge_reweight"),
                        ("sharded_psum", "edge_reweight"),
-                       ("moe", "flash_fwd")):
+                       ("moe", "flash_fwd"),
+                       ("sharded_serve", "fused_ell_sweep"),
+                       ("sharded_serve4", "edge_reweight"),
+                       ("perf", "ell_spmv"), ("perf", "fused_ell_sweep"),
+                       ("perf", "block_diag_matvec")):
         if report[path]["launches"][name] == 0:
             raise AssertionError(f"{name} was not launched on the {path} path")
 
@@ -3376,7 +3839,10 @@ def main(argv=None) -> int:
                      "presolve": report["presolve"]["launches"],
                      "cuttree": report["cuttree"]["launches"],
                      **{"sharded_" + r: report["sharded_" + r]["launches"]
-                        for r in SHARD_ROUTES}}
+                        for r in SHARD_ROUTES},
+                     "sharded_serve": report["sharded_serve"]["launches"],
+                     "sharded_serve4": report["sharded_serve4"]["launches"],
+                     "perf": report["perf"]["launches"]}
     for name in KERNELS:
         if path_launches[LAUNCH_PATH[name]][name] == 0:
             raise AssertionError(f"{name} was not launched on its path")

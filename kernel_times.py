@@ -1,7 +1,7 @@
 """Times kernels of one tree of the port, by both of ``chip_smoke.py``'s
 methods, and their wrappers' host time.
 
-    python3 kernel_times.py [--src DIR] [--kernels ell|edge_reweight]
+    python3 kernel_times.py [--src DIR] [--kernels ell|edge_reweight|coo]
                             [--side N] [--lanes 4] [--out FILE]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed (by
@@ -17,7 +17,17 @@ run parent, change, change, parent.  ``--kernels`` picks the set:
 - ``edge_reweight``: ``edge_reweight`` on the inputs of phase 7
   (``edge_reweight_alone``): the COO graph of the ``--side``³ volume (96 by
   default here) at B = 1 and B = 8, and of the 1024² 4-connected frame at
-  B = 8.
+  B = 8;
+- ``coo``: the COO path of ``chip_smoke.py``'s phase 8 on the ``--side``³
+  volume (96 by default here), in ``MinCutServer``'s default config with
+  ``use_pallas``: the matvec (``laplacian.matvec_coo``) and the reweight
+  with its degree sums (``laplacian.reweight``) at B = 8, the sweep
+  rounding of one lane (``rounding.sweep_cut_torch``), and a cold
+  ``solve_batch`` of 8 drifted lanes (phase 8's first volume batch, no
+  warm start) with sweep rounding.  These are plain torch, so a tree's
+  ``--src`` decides whether they scatter with atomics (``index_add_``) or
+  in a fixed order; the sweep (its argmin indexes on the card) and the
+  batch (its PCG waits on the card every step) have no ``graph_ms``.
 
 Per call, three rounds of:
 
@@ -46,7 +56,8 @@ ROOT = Path(__file__).resolve().parent
 # the side of chip_smoke.py's serving frame (its --frame default)
 FRAME = 1024
 KERNEL_SETS = {"ell": ("ell_spmv", "fused_ell_sweep", "block_diag_matvec"),
-               "edge_reweight": ("edge_reweight",)}
+               "edge_reweight": ("edge_reweight",),
+               "coo": ("edge_reweight",)}
 
 
 def host_us(fn, calls: int) -> float:
@@ -124,6 +135,45 @@ def edge_reweight_calls(side: int, seed: int) -> dict:
     return calls
 
 
+def coo_calls(side: int, seed: int) -> dict:
+    """The COO path's calls on phase 8's volume: operators at B = 8, one
+    lane's sweep rounding, and a cold batch of 8 (no CUDA graph: its PCG
+    waits on the card every step)."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as smoke
+    from repro_torch.core import MinCutSession, Problem
+    from repro_torch.core import laplacian as lap
+    from repro_torch.core import rounding as rd
+
+    dev = torch.device("cuda")
+    inst = smoke.segmentation_grid(side, seed)
+    cfg = smoke.server_cfg(True)
+    sess = MinCutSession(Problem.build(inst, n_blocks=1), cfg, device=dev)
+    g = sess.problem.device_graph(torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 8)
+    lanes = 8
+    c, v = smoke.edge_reweight_inputs(g, lanes, gen)
+    gb = g._replace(c=c)
+    rw = lap.reweight(gb, v, cfg.eps)
+    x = torch.randn((lanes, g.n), generator=gen, device=dev)
+    src, dst = g.src.long(), g.dst.long()
+    # the topology's COO plan, in a tree that has one (an older tree's
+    # sweep scatters and takes none)
+    plan = (g.coo,) if "coo" in g._fields else ()
+    ws, _ = smoke.serve_traffic(np.random.default_rng(seed), inst, 1.0,
+                                lanes, 0.05)
+    return {"matvec_coo B=8": (lambda: lap.matvec_coo(gb, rw, x), 20, True),
+            "reweight B=8": (lambda: lap.reweight(gb, v, cfg.eps), 20, True),
+            "sweep_cut": (lambda: rd.sweep_cut_torch(src, dst, g.c, g.c_s,
+                                                     g.c_t, v[0], *plan),
+                          10, False),
+            "cold batch B=8": (lambda: sess.solve_batch(ws, rounding="sweep",
+                                                        pad_to=lanes),
+                               1, False)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
@@ -153,27 +203,38 @@ def main(argv=None) -> int:
     if args.kernels == "ell":
         side = args.side or 48
         calls = kernel_calls(side, args.lanes, args.seed)
+    elif args.kernels == "coo":
+        side = args.side or 96
+        calls = coo_calls(side, args.seed)
     else:
         side = args.side or 96
         calls = edge_reweight_calls(side, args.seed)
     runs = {}
-    for name, (fn, reps) in calls.items():
+    for name, call in calls.items():
+        fn, reps, graphable = (call + (True,))[:3]
         fn()
-        r = runs[name] = {"ms": [], "graph_ms": [], "host_us": []}
+        r = runs[name] = {"ms": []}
+        if graphable:
+            r.update(graph_ms=[], host_us=[])
         for _ in range(args.rounds):
-            r["ms"].append(smoke.time_ms(fn, reps))
-            r["graph_ms"].append(smoke.graph_ms(fn, reps))
-            r["host_us"].append(host_us(fn, reps))
+            r["ms"].append(smoke.time_ms(fn, reps,
+                                         warmup=3 if graphable else 1))
+            if graphable:
+                r["graph_ms"].append(smoke.graph_ms(fn, reps))
+                r["host_us"].append(host_us(fn, reps))
         med = {key: statistics.median(t) for key, t in r.items()}
         r["median"] = med
-        print(f"{name}: {med['ms']:.4f} ms a call back to back, "
-              f"{med['graph_ms']:.4f} ms a launch in a CUDA graph, "
-              f"{med['host_us']:.1f} us of host time a call", flush=True)
+        if graphable:
+            print(f"{name}: {med['ms']:.4f} ms a call back to back, "
+                  f"{med['graph_ms']:.4f} ms a launch in a CUDA graph, "
+                  f"{med['host_us']:.1f} us of host time a call", flush=True)
+        else:
+            print(f"{name}: {med['ms']:.4f} ms a call", flush=True)
     report = {"src": str(Path(repro_torch.__file__).parent), "card": card,
               "side": side}
     if args.kernels == "ell":
         report["lanes"] = args.lanes
-    else:
+    elif args.kernels == "edge_reweight":
         report["frame"] = FRAME
     report["kernels"] = runs
     if args.out:

@@ -24,12 +24,73 @@ import numpy as np
 import torch
 
 
+class Segments(NamedTuple):
+    """A fixed-order segmented sum over the edges, per endpoint node.
+
+    ``perm`` lists edge ids grouped by node (a stable sort, so each node's
+    run is in the order the edges are listed) and ``offsets`` (n + 1
+    entries) bounds each node's run in it, so ``segment_sum`` adds every
+    node's edges in one order: the same on every run, on every device, and
+    for every lane of a batch (no atomics)."""
+
+    perm: torch.Tensor      # int64[len]: edge ids
+    offsets: torch.Tensor   # int64[n + 1]
+
+
+class CooPlan(NamedTuple):
+    """Per-topology plan of the COO scatters: the edges grouped by ``src``
+    and by ``dst`` (the two sums of ``laplacian.matvec_coo``), and the 2m
+    edge ends ``[src, dst]`` grouped by node (the degree sums and the sweep
+    rounding), with each end's side."""
+
+    by_src: Segments
+    by_dst: Segments
+    by_end: Segments        # perm: the edge id of each end
+    end_sign: torch.Tensor  # int8[2m] in by_end order: +1 src end, -1 dst end
+
+
+def segments(keys: torch.Tensor, n: int) -> Segments:
+    """The ``Segments`` of ``keys`` (node ids in [0, n)), on their device
+    (no host sync: the offsets are searched, not counted)."""
+    ordered, perm = torch.sort(keys.to(torch.int64), stable=True)
+    offsets = torch.searchsorted(
+        ordered, torch.arange(n + 1, dtype=torch.int64, device=keys.device))
+    return Segments(perm=perm, offsets=offsets)
+
+
+def reduce_segments(offsets: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Per-node sums of ``x``, already in segment order along its last
+    dimension.  ``unsafe`` skips ``segment_reduce``'s checks of the
+    offsets, which wait on the card; a plan is valid by construction."""
+    off = offsets.expand(x.shape[:-1] + offsets.shape)
+    return torch.segment_reduce(x, "sum", offsets=off, axis=x.dim() - 1,
+                                unsafe=True)
+
+
+def segment_sum(seg: Segments, x: torch.Tensor) -> torch.Tensor:
+    """Per-node sums of ``x`` (its last dimension indexed by edge) in the
+    fixed order of ``seg``: shape ``x.shape[:-1] + (n,)``.  On the CPU the
+    bits are those of ``index_add_`` (edge order as well)."""
+    return reduce_segments(seg.offsets, x[..., seg.perm])
+
+
+def coo_plan(src: torch.Tensor, dst: torch.Tensor, n: int) -> CooPlan:
+    """The ``CooPlan`` of a topology, built once on the device of its
+    index arrays (stable sorts, deterministic on every device)."""
+    m = src.shape[0]
+    ends = segments(torch.cat([src, dst]), n)
+    return CooPlan(by_src=segments(src, n), by_dst=segments(dst, n),
+                   by_end=Segments(perm=ends.perm % m, offsets=ends.offsets),
+                   end_sign=torch.where(ends.perm < m, 1, -1).to(torch.int8))
+
+
 class DeviceGraph(NamedTuple):
     """Device-resident s-t instance (see graphs.structures.STInstance).
 
     src, dst : int32[m]      non-terminal edge endpoints
     c        : f[m] or f[B, m]  non-terminal edge weights
     c_s, c_t : f[n] or f[B, n]  terminal edge weights to s / t (0 where absent)
+    coo      : the topology's ``CooPlan``
     """
 
     src: torch.Tensor
@@ -37,6 +98,7 @@ class DeviceGraph(NamedTuple):
     c: torch.Tensor
     c_s: torch.Tensor
     c_t: torch.Tensor
+    coo: CooPlan
 
     @property
     def n(self) -> int:
@@ -57,9 +119,10 @@ def device_graph_from_instance(inst, dtype=torch.float32,
     def val(a):
         return torch.as_tensor(np.asarray(a), device=device).to(dtype)
 
-    return DeviceGraph(src=idx(inst.graph.src), dst=idx(inst.graph.dst),
-                       c=val(inst.graph.weight), c_s=val(inst.s_weight),
-                       c_t=val(inst.t_weight))
+    src, dst = idx(inst.graph.src), idx(inst.graph.dst)
+    return DeviceGraph(src=src, dst=dst, c=val(inst.graph.weight),
+                       c_s=val(inst.s_weight), c_t=val(inst.t_weight),
+                       coo=coo_plan(src, dst, inst.n))
 
 
 def eps_sq(eps) -> float:

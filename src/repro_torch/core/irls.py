@@ -43,7 +43,8 @@ from . import adaptive as sched
 from . import laplacian as lap
 from . import precond as pc
 from ..kernels import ops as kops
-from .incidence import DeviceGraph, l1_objective, smoothed_objective
+from .incidence import (CooPlan, DeviceGraph, l1_objective,
+                        smoothed_objective)
 from .pcg import pcg, pcg_fixed_iters, pcg_masked
 
 
@@ -187,7 +188,7 @@ class _Stepper:
         c, c_s, c_t = (weights if weights is not None
                        else (self.g.c, self.g.c_s, self.g.c_t))
         tol = cfg.pcg_tol if tol is None else tol
-        g = DeviceGraph(src=self.g.src, dst=self.g.dst, c=c, c_s=c_s, c_t=c_t)
+        g = self.g._replace(c=c, c_s=c_s, c_t=c_t)
         if first:
             rw = lap.initial_weights(g)
             matvec = _make_matvec(g, rw, cfg, self.ell_plan)
@@ -316,7 +317,8 @@ def _scanned_precond(cfg: IRLSConfig, rw, matvec,
 def make_scanned_program(src, dst, cfg: IRLSConfig,
                          block_plan: Optional[pc.BlockPlan] = None,
                          ell_plan: Optional[lap.EllPlan] = None,
-                         warm: bool = False, ext_stage: bool = False):
+                         warm: bool = False, ext_stage: bool = False,
+                         *, coo: CooPlan):
     """Build the weight-parameterized scanned IRLS program.
 
     Returns ``run(c, c_s, c_t) → (v, rels, iters)`` with the topology
@@ -342,7 +344,8 @@ def make_scanned_program(src, dst, cfg: IRLSConfig,
     staged table right after the weights, ``run(c, c_s, c_t, c_ell[, v0])``
     with ``c_ell`` (n, k) or (B, n, k).  This is the delta-staging path:
     under sparse weight drift the session patches the previous staging
-    (``lap.ell_edge_weights_delta``) instead of restaging all m edges."""
+    (``lap.ell_edge_weights_delta``) instead of restaging all m edges.
+    ``coo`` is the topology's ``incidence.CooPlan``."""
     if ext_stage and not _fused(cfg, ell_plan):
         raise ValueError("ext_stage requires the fused ELL path "
                          "(cfg.layout='ell' + fuse_edge_sweep + an ELL plan)")
@@ -387,7 +390,7 @@ def make_scanned_program(src, dst, cfg: IRLSConfig,
         return v_new, st_new, res.rel_res, spent
 
     def _run(c, c_s, c_t, v_warm, c_ell):
-        g = DeviceGraph(src=src, dst=dst, c=c, c_s=c_s, c_t=c_t)
+        g = DeviceGraph(src=src, dst=dst, c=c, c_s=c_s, c_t=c_t, coo=coo)
         # the slot-major ELL weights, staged ONCE per solve (unless the
         # caller staged them: the delta path)
         if c_ell is None and _fused(cfg, ell_plan):
@@ -430,6 +433,7 @@ def solve_scanned(g: DeviceGraph, cfg: IRLSConfig,
                   ell_plan: Optional[lap.EllPlan] = None):
     """The scanned program on one device graph (single or batched weights);
     returns ``(v, rels)``."""
-    run = make_scanned_program(g.src, g.dst, cfg, block_plan, ell_plan)
+    run = make_scanned_program(g.src, g.dst, cfg, block_plan, ell_plan,
+                               coo=g.coo)
     v, rels, _ = run(g.c, g.c_s, g.c_t)
     return v, rels

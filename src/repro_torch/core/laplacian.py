@@ -11,7 +11,8 @@ conductances ``r_e = c_e² / w_e`` plus diagonal terminal conductances::
 Two matvec layouts:
 
 * **edge-scatter** (COO): gather v[src], v[dst] → per-edge flux →
-  ``index_add_``.
+  per-node segmented sums in edge order (``incidence.CooPlan``: no
+  atomics, so a served solve gives the same bits on every run).
 * **ELLPACK**: padded fixed-degree rows; the layout of the hand-written CUDA
   kernels (kernels/csrc/ell_spmv.cu, fused_ell_sweep.cu).
 
@@ -27,7 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .incidence import DeviceGraph, eps_sq
+from .incidence import DeviceGraph, eps_sq, segment_sum
 
 
 class Reweighted(NamedTuple):
@@ -47,10 +48,7 @@ class Reweighted(NamedTuple):
 
 
 def _degree(g: DeviceGraph, r: torch.Tensor) -> torch.Tensor:
-    deg = torch.zeros(r.shape[:-1] + (g.n,), dtype=r.dtype, device=r.device)
-    deg.index_add_(-1, g.src, r)
-    deg.index_add_(-1, g.dst, r)
-    return deg
+    return segment_sum(g.coo.by_end, r)
 
 
 def edge_conductances(src: torch.Tensor, dst: torch.Tensor, c: torch.Tensor,
@@ -89,8 +87,8 @@ def initial_weights(g: DeviceGraph) -> Reweighted:
 def matvec_coo(g: DeviceGraph, rw: Reweighted, v: torch.Tensor) -> torch.Tensor:
     """Edge-scatter (COO) reduced-Laplacian matvec  y = L̃ v."""
     flux = rw.r * (v[..., g.src] - v[..., g.dst])
-    y_src = torch.zeros_like(v).index_add_(-1, g.src, flux)
-    y_dst = torch.zeros_like(v).index_add_(-1, g.dst, flux)
+    y_src = segment_sum(g.coo.by_src, flux)
+    y_dst = segment_sum(g.coo.by_dst, flux)
     return y_src - y_dst + (rw.r_s + rw.r_t) * v
 
 

@@ -16,12 +16,15 @@ RoundingResult``); every rounder takes ``device=``.
 """
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
 from typing import Callable, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from ..graphs.structures import EdgeList, STInstance
+from .incidence import CooPlan, coo_plan, reduce_segments
 
 
 class RoundingResult(NamedTuple):
@@ -57,31 +60,33 @@ def round_voltages(name: str, instance, v, **kw) -> "RoundingResult":
 # Sweep cut
 # ---------------------------------------------------------------------------
 
-def sweep_cut_torch(src, dst, w, s_w, t_w, v):
+def sweep_cut_torch(src, dst, w, s_w, t_w, v, coo: CooPlan):
     """All-prefix cut evaluation on the device of ``v``.
 
     Sort nodes by voltage DESCENDING; prefix i (1..n) puts the top-i nodes
     on the source side.  An internal edge (u,x) crosses for
     i in [min(r_u,r_x)+1, max(r_u,r_x)]; a terminal s-edge crosses while u
     is outside, a terminal t-edge while u is inside.  Difference arrays +
-    cumsum give cut(i) for every i in one pass.  Returns (in_source, cut).
+    cumsum give cut(i) for every i in one pass.  ``coo`` is the topology's
+    ``incidence.CooPlan``.  Returns (in_source, cut).
     """
     n = v.shape[0]
     order = torch.argsort(-v, stable=True)      # order[i] = node at rank i
     rank = torch.empty(n, dtype=torch.int64, device=v.device)
     rank[order] = torch.arange(n, device=v.device)
-    ru = rank[src]
-    rx = rank[dst]
-    lo = torch.minimum(ru, rx)
-    hi = torch.maximum(ru, rx)
-    # diff over prefix index i in [1..n]; slot j holds the cut at i = j+1
-    d = torch.zeros((n + 1,), dtype=v.dtype, device=v.device)
-    d.index_add_(0, lo, w)        # starts crossing at i = lo+1
-    d.index_add_(0, hi, -w)       # stops crossing at i = hi+1
+    # diff over prefix index i in [1..n]; slot j holds the cut at i = j+1.
+    # Node u enters at i = rank[u]+1: each of its edges starts crossing
+    # there (+w) if its other end ranks later, else stops (-w); its s-edge
+    # stops and its t-edge starts.  Each node's ends are summed in the
+    # plan's fixed order (no atomics, so the chosen prefix is the same on
+    # every run) and land in u's own slot (rank is a permutation)
+    t = w * torch.sign(rank[dst] - rank[src]).to(w.dtype)
+    per_node = reduce_segments(coo.by_end.offsets,
+                               t[coo.by_end.perm] * coo.end_sign)
+    d = torch.empty_like(per_node)
+    d[rank] = per_node - s_w + t_w
     base = s_w.sum()              # cut at i = 0: all s-edges cross
-    d.index_add_(0, rank, -s_w)   # u enters at i = rank+1 → s-edge stops
-    d.index_add_(0, rank, t_w)    # u enters → its t-edge starts crossing
-    cuts = base + torch.cumsum(d, dim=0)[:n]
+    cuts = base + torch.cumsum(d, dim=0)
     # every prefix i ∈ [0, n] is a valid s-t cut (i = 0 is `base`)
     best = torch.argmin(cuts)
     best_val = cuts[best]
@@ -90,20 +95,45 @@ def sweep_cut_torch(src, dst, w, s_w, t_w, v):
     return in_source, torch.where(use0, base, best_val)
 
 
+#: the last few topologies rounded: (src, dst, device) → their index
+#: tensors and ``CooPlan``, so a served topology sorts its edges once
+_TOPOLOGIES: "OrderedDict" = OrderedDict()
+_TOPOLOGIES_LOCK = threading.Lock()
+_TOPOLOGIES_KEPT = 4
+
+
+def _topology(g: EdgeList, device):
+    """``g``'s index tensors and plan on ``device``, cached by the identity
+    of its index arrays (``Problem.instance_with`` shares them between the
+    requests of one topology)."""
+    key = (id(g.src), id(g.dst), str(device))
+    with _TOPOLOGIES_LOCK:
+        hit = _TOPOLOGIES.get(key)
+        if hit is not None and hit[0] is g.src and hit[1] is g.dst:
+            _TOPOLOGIES.move_to_end(key)
+            return hit[2]
+    src = torch.as_tensor(np.asarray(g.src, dtype=np.int64), device=device)
+    dst = torch.as_tensor(np.asarray(g.dst, dtype=np.int64), device=device)
+    topo = (src, dst, coo_plan(src, dst, g.n))
+    with _TOPOLOGIES_LOCK:
+        _TOPOLOGIES[key] = (g.src, g.dst, topo)
+        _TOPOLOGIES.move_to_end(key)
+        while len(_TOPOLOGIES) > _TOPOLOGIES_KEPT:
+            _TOPOLOGIES.popitem(last=False)
+    return topo
+
+
 @register("sweep")
 def sweep_cut(instance: STInstance, v: np.ndarray,
               device="cuda") -> RoundingResult:
     g = instance.graph
-
-    def idx(a):
-        return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
+    src, dst, coo = _topology(g, device)
 
     def val(a):
         return torch.as_tensor(np.asarray(a, dtype=np.float32), device=device)
 
-    ind, _ = sweep_cut_torch(idx(g.src), idx(g.dst), val(g.weight),
-                             val(instance.s_weight), val(instance.t_weight),
-                             val(v))
+    ind, _ = sweep_cut_torch(src, dst, val(g.weight), val(instance.s_weight),
+                             val(instance.t_weight), val(v), coo)
     ind = ind.cpu().numpy()
     exact = instance.cut_value(ind)   # recompute in f64 on host
     return RoundingResult(in_source=ind, cut_value=exact,

@@ -50,6 +50,7 @@ from . import laplacian as lap
 from . import precond as pc
 from . import rounding as rd
 from .incidence import DeviceGraph, device_graph_from_instance
+from .adaptive import is_adaptive
 from .irls import (IRLSConfig, IRLSDiagnostics, _Stepper, make_scanned_program,
                    run_host_loop, torch_dtype)
 from .rounding import RoundingResult
@@ -57,6 +58,7 @@ from ..graphs import partition as gp
 from ..graphs.structures import EdgeList, STInstance, permute_instance
 from ..obs import trace
 from ..obs.metrics import get_registry
+from ..obs.perf import profile as perf_profile
 from ..obs.telemetry import TelemetryAggregator, build_solve_telemetry
 
 
@@ -320,9 +322,8 @@ class Problem:
         def val(a):
             return torch.as_tensor(np.asarray(a), device=device).to(dtype)
 
-        return DeviceGraph(src=base.src, dst=base.dst, c=val(w.c),
-                           c_s=val(self.to_reordered(w.c_s)),
-                           c_t=val(self.to_reordered(w.c_t)))
+        return base._replace(c=val(w.c), c_s=val(self.to_reordered(w.c_s)),
+                             c_t=val(self.to_reordered(w.c_t)))
 
     def block_plan(self, device="cuda") -> pc.BlockPlan:
         g = self.inst_r.graph
@@ -372,8 +373,7 @@ class SolveResult(NamedTuple):
     pcg_iters: Optional[np.ndarray] = None  # scanned: PCG iterations spent
                                             # per IRLS iteration (0 once
                                             # the adaptive mask froze it)
-    telemetry: Optional[Dict] = None        # per-solve record (obs.telemetry;
-                                            # cost fields None)
+    telemetry: Optional[Dict] = None        # per-solve record (obs.telemetry)
 
     @property
     def cut_value(self) -> float:
@@ -393,14 +393,18 @@ class MinCutSession:
     lock per key.
 
     ``schedule`` ("halo" or "psum"), ``precond_bs`` and ``group`` configure
-    the sharded backend (``distributed.solver.ShardedSolver``)."""
+    the sharded backend (``distributed.solver.ShardedSolver``).
+    ``profile`` — count every solve's work into its telemetry (FLOPs,
+    bytes, achieved rates, H100 roofline fraction; ``obs.perf.profile``);
+    None follows ``profile.default_enabled()``."""
 
     BACKENDS = ("host", "scanned", "sharded")
 
     def __init__(self, problem: Union[Problem, STInstance],
                  cfg: IRLSConfig = IRLSConfig(), backend: str = "host",
                  device="cuda", schedule: str = "halo",
-                 precond_bs: int = 128, group=None):
+                 precond_bs: int = 128, group=None,
+                 profile: Optional[bool] = None):
         if isinstance(problem, STInstance):
             n_blocks = cfg.n_blocks if cfg.precond == "block_jacobi" else 1
             problem = Problem.build(problem, n_blocks=n_blocks)
@@ -436,6 +440,10 @@ class MinCutSession:
         self._delta_max = 64
         # per-session fold of every SolveResult.telemetry (obs.telemetry)
         self.telemetry = TelemetryAggregator()
+        # continuous profiling (obs.perf.profile): per driver key the
+        # solve's shape and its per-unit work
+        self._profile = profile
+        self._program_costs: Dict[tuple, dict] = {}
 
     def _check_backend(self, backend: str) -> None:
         if backend not in self.BACKENDS:
@@ -534,12 +542,15 @@ class MinCutSession:
             residuals=rels, diagnostics=diag,
             warm_start=(None if backend == "sharded"
                         else warm_from is not None),
+            cost=self._solve_cost(cfg, backend, warm_from is not None,
+                                  diag, pcg_iters, timings),
             clamped_reweights=clamped)
         if delta_tel is not None:
             tel["delta"] = delta_tel
         if sharded_refill is not None:
             tel["sharded_refill"] = sharded_refill
         self.telemetry.add(tel)
+        self._record_cost_metrics(tel)
         return SolveResult(voltages=v, cut=cut, diagnostics=diag,
                            residuals=rels, timings=timings, backend=backend,
                            pcg_iters=pcg_iters, telemetry=tel)
@@ -682,10 +693,13 @@ class MinCutSession:
                 tel = build_solve_telemetry(
                     cfg, "scanned", prob.instance.n, prob.instance.graph.m,
                     timings, pcg_iters=ITERS[j], residuals=RELS[j],
-                    warm_start=warm)
+                    warm_start=warm,
+                    cost=self._solve_cost(cfg, "scanned", warm, None,
+                                          ITERS[j], timings))
                 if delta_infos is not None and delta_infos[j] is not None:
                     tel["delta"] = delta_infos[j]
                 self.telemetry.add(tel)
+                self._record_cost_metrics(tel)
                 out[i] = SolveResult(
                     voltages=v, cut=cut, diagnostics=None,
                     residuals=RELS[j], timings=timings, backend="scanned",
@@ -827,7 +841,7 @@ class MinCutSession:
                         Problem.build(kernel.instance, n_blocks=nb),
                         cfg=kcfg, backend=self.backend, device=self.device,
                         schedule=self.schedule, precond_bs=self.precond_bs,
-                        group=self.group)
+                        group=self.group, profile=self._profile)
                     self._kernel_sessions[key] = sess
         return sess, kcfg
 
@@ -963,6 +977,94 @@ class MinCutSession:
                                            action=action)
         return [r for r in out if r is not None]
 
+    # -- continuous profiling (obs.perf.profile) ---------------------------------
+    def _profiling(self) -> bool:
+        return (self._profile if self._profile is not None
+                else perf_profile.default_enabled())
+
+    def program_costs(self) -> Dict[str, dict]:
+        """Per driver of every profiled solve (keyed ``"<backend>"``-style
+        like the driver cache: ``host``, ``scanned/<warm>``,
+        ``sharded/<schedule>``), the solve's shape and the per-unit work of
+        ``obs.perf.profile.terms`` (JSON-ready)."""
+        return {"/".join(str(p) for p in key[1:]): cost
+                for key, cost in self._program_costs.items()}
+
+    def _shape_for(self, cfg: IRLSConfig, backend: str):
+        """The ``SolveShape`` of this session's solves under ``cfg`` on
+        ``backend`` (its plans are built by then; a sharded solve counts
+        this rank's shard)."""
+        if backend == "sharded":
+            return self._steppers[(cfg, "sharded", self.schedule)].work_shape()
+        prob = self.problem
+        block_plan, ell_plan = self._plans_for(cfg)
+        precond = cfg.precond
+        if backend == "scanned" and (precond == "none" or block_plan is None
+                                     and precond == "block_jacobi"):
+            precond = "jacobi"     # the scanned schedules' least scaling
+        return perf_profile.solve_shape(
+            cfg, prob.instance.n, prob.instance.graph.m,
+            ell_k=ell_plan.k if ell_plan is not None else 0,
+            blocks=block_plan.p if block_plan is not None else 0,
+            bs=block_plan.bs if block_plan is not None else 0,
+            precond=precond)
+
+    def _solve_cost(self, cfg: IRLSConfig, backend: str, warm: bool, diag,
+                    pcg_iters, timings) -> Optional[dict]:
+        """Per-solve cost record for telemetry (None when not profiled):
+        the work counted from the solve's shape and its PCG trace.
+
+        Host: per IRLS iteration (``diag.pcg_iters``, the cold system
+        first).  Scanned: the lane's trace (``pcg_iters``) after the cold
+        initial solve, which the program does not report: counted at
+        ``pcg_max_iters`` steps on the fixed schedule and at none on the
+        adaptive one (a lower bound).  Sharded: every CG step of the
+        collective census, and the census's bytes."""
+        if not self._profiling():
+            return None
+        key = ((cfg, backend) if backend == "host"
+               else (cfg, backend, self.schedule) if backend == "sharded"
+               else (cfg, backend, warm))
+        cost = self._program_costs.get(key)
+        if cost is None:
+            shape = self._shape_for(cfg, backend)
+            cost = self._program_costs[key] = {
+                "shape": shape._asdict(),
+                "terms": {name: w._asdict() for name, w
+                          in perf_profile.terms(shape).items()}}
+        shape = perf_profile.SolveShape(**cost["shape"])
+        collective = 0.0
+        if backend == "host":
+            iters = list(diag.pcg_iters)
+            systems, steps, calls = len(iters), sum(iters), len(iters)
+        elif backend == "scanned":
+            iters = np.asarray(pcg_iters)
+            initial = (0 if warm or is_adaptive(cfg)
+                       else cfg.pcg_max_iters)
+            systems, steps, calls = len(iters) + (not warm), \
+                int(iters.sum()) + initial, 1
+        else:
+            census = self._steppers[key].collective_stats()
+            systems, steps, calls = len(pcg_iters) + 1, \
+                census["pcg_steps"], 1
+            collective = float(sum(v["bytes"]
+                                   for ops in census["scopes"].values()
+                                   for v in ops.values()))
+        work = perf_profile.solve_work(shape, systems, steps, cold=not warm)
+        per_call = {"flops": work["flops"] / calls,
+                    "hbm_bytes": work["hbm_bytes"] / calls,
+                    "collective_bytes": collective / calls}
+        return perf_profile.per_solve_cost(per_call, timings.get("irls", 0.0),
+                                           calls)
+
+    def _record_cost_metrics(self, tel) -> None:
+        if not tel or not tel.get("flops"):
+            return
+        reg = get_registry()
+        reg.counter("session_flops_total").inc(int(tel["flops"]))
+        if tel.get("achieved_gflops") is not None:
+            reg.gauge("session_achieved_gflops").set(tel["achieved_gflops"])
+
     # -- drivers ----------------------------------------------------------------
     def _plans_for(self, cfg: IRLSConfig):
         block_plan = None
@@ -1086,7 +1188,8 @@ class MinCutSession:
             block_plan, ell_plan = self._plans_for(cfg)
             g0 = self.problem.device_graph(dtype, device=self.device)
             return make_scanned_program(g0.src, g0.dst, cfg, block_plan,
-                                        ell_plan, warm=warm, ext_stage=ext)
+                                        ell_plan, warm=warm, ext_stage=ext,
+                                        coo=g0.coo)
 
         return self._cached((cfg, "scanned", warm, ext), build)
 

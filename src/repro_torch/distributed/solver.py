@@ -46,6 +46,7 @@ queue 1, item 7 (dry runs).
 """
 from __future__ import annotations
 
+import dataclasses
 import warnings
 from typing import Dict, NamedTuple, Optional
 
@@ -711,6 +712,30 @@ class ShardedSolver:
 
     def compiled(self):
         raise NotImplementedError(_DRY_RUN)
+
+    def work_shape(self):
+        """The ``obs.perf.profile.SolveShape`` of this rank's shard: its
+        rows (nl on the halo schedule, the replicated n_pad on psum) and its
+        directed copies or edges, the halo's ELL width and its sub-block
+        preconditioner (Cholesky factors, applied by triangular solves)."""
+        from ..obs.perf import profile as perf_profile
+
+        cfg, rank = self.cfg, self.rank
+        if self.schedule == "psum":
+            return perf_profile.solve_shape(
+                dataclasses.replace(cfg, layout="coo"), self.plan.n_pad,
+                self.plan.src.shape[1], precond="jacobi")
+        copies = self.plan.heads.shape[1]
+        block = cfg.precond == "block_jacobi"
+        return perf_profile.solve_shape(
+            dataclasses.replace(cfg, layout="coo" if self.ell is None else "ell",
+                                explicit_block_inverse=False),
+            self.plan.nl, copies,
+            ell_k=self.ell.k if self.ell is not None else 0,
+            slots=int(np.count_nonzero(self.plan.c[rank])),
+            blocks=self.block_plan.nb if block else 0,
+            bs=self.block_plan.bs if block else 0,
+            precond="block_jacobi" if block else "jacobi")
 
     def collective_stats(self) -> Dict[str, object]:
         """The collective census of the latest ``solve()`` on this rank (the

@@ -21,12 +21,13 @@ timings alone cannot explain:
                        per-rule fired counts, base) or None
     phases             per-phase wall seconds (setup/presolve/irls/
                        rounding/total; the engine adds queue/assembly)
-    flops, hbm_bytes   static cost estimate of the program(s) this solve
-                       executed; the JAX package takes them from XLA's
-                       cost analysis, which has no counterpart in the port
-                       yet, so the port's solves leave them None
+    flops, hbm_bytes   the work this solve did, counted from its shapes
+                       and PCG trace (``obs.perf.profile``; the JAX package
+                       reads XLA's cost analysis instead); None when the
+                       session does not profile
     achieved_gflops    flops / irls wall seconds / 1e9 (+ achieved_gbps,
-                       roofline_fraction); None with the cost
+                       roofline_fraction against the H100's float32 and HBM
+                       rates); None with the cost
     clamped_reweights  sharded reweight-clamp hits this solve (the
                        cfg.reweight_clamp float32 mitigation); None when
                        not applicable

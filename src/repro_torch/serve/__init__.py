@@ -6,7 +6,10 @@ device (``device="cuda"`` by default):
     MinCutServer      — async ``submit(topology, weights) -> Future``
                         front-end over a pool of ``n_workers`` dispatch
                         workers pulling ready batches from the shared
-                        admission queue (engine.py)
+                        admission queue (engine.py); on the sharded
+                        backend it serves on rank 0 of a process group
+    follow_sharded    — the loop of the group's other ranks: the same
+                        sessions and solves, by broadcast (engine.py)
     MicroBatcher      — groups pending requests by topology fingerprint,
                         pads to power-of-two buckets, flushes on
                         max-batch / max-wait-ms / idle-worker triggers
@@ -28,5 +31,6 @@ The port of the JAX package's ``repro.serve``.
 from .batcher import MicroBatch, MicroBatcher, bucket_size
 from .cache import AdmissionController, CacheStats, ServerOverloaded, SessionCache
 from .cuttree import CutTreeService
-from .engine import FLUSH_POLICIES, MinCutServer, default_workers
+from .engine import (FLUSH_POLICIES, MinCutServer, default_workers,
+                     follow_sharded)
 from .metrics import ServeMetrics, percentile

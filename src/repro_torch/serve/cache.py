@@ -102,6 +102,12 @@ class SessionCache:
             self._instances[key] = instance
             self._sessions.pop(key, None)
 
+    def drop(self, key: str) -> None:
+        """Forget ``key``'s session, if one is cached: the next ``get``
+        builds it again."""
+        with self._lock:
+            self._sessions.pop(key, None)
+
     def known(self, key: str) -> bool:
         with self._lock:
             return key in self._instances

@@ -45,16 +45,32 @@ errors raised during batch execution (e.g. a cfg whose partition geometry
 doesn't match the server's) land on every future of that batch.
 
 The JAX package's ``repro.serve.engine`` over the port's session, on the
-server's ``device`` (default ``"cuda"``).  The server has no sharded
-backend yet and raises ``NotImplementedError``: serving over the ranks of
-a group needs rank 0 to serve while the other ranks follow a broadcast
-loop, which the single-controller JAX server has no counterpart for
-(ROADMAP queue 1, item 8).  ``MinCutSession(backend="sharded")`` solves
-over ranks.
+server's ``device`` (default ``"cuda"``).
+
+The sharded backend serves over the ranks of a ``torch.distributed``
+group (``group``; None: the default group, or a world of one that the
+first solve initializes).  The JAX server is one controller over the whole
+mesh; here every rank runs its shard, so rank 0 of the group runs the
+server — admission, batcher, session cache, metrics, futures — and every
+other rank runs ``follow_sharded``.  Rank 0 broadcasts each session build
+(``register``: the topology and how to build its session) and each batch
+(``solve``: topology key, weights, cfg, rounding, presolve, delta key) on
+the group; a follower builds the same sessions and makes the same
+``MinCutSession.solve`` calls in the same order, so the ranks meet in the
+same collectives, and leaves its loop when ``stop()`` broadcasts
+``stop``.  A batch's broadcast and its solves run under one lock, so the
+collectives of two batches never interleave.  After each message every
+rank says whether it can act on it (one all-reduced flag): a session that
+a follower failed to build, or no longer holds, fails that request's
+batch on rank 0 before any collective of the solver, and the next request
+builds it again on every rank.  Within a batch, each request fails alone
+(its error lands on its own future), since every rank goes on with the
+batch's next request.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 import threading
 import time
 from collections import OrderedDict
@@ -63,10 +79,11 @@ from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.irls import IRLSConfig
 from ..core.session import (MinCutSession, Problem, SolveResult, Weights,
-                            check_weights_for)
+                            check_weights_for, topology_fingerprint)
 from ..graphs.structures import STInstance
 from ..obs import trace
 from ..obs.metrics import get_registry
@@ -77,6 +94,7 @@ from .cache import AdmissionController, ServerOverloaded, SessionCache
 from .metrics import ServeMetrics
 
 _DEFAULT = object()      # "use the server default" sentinel (None = skip)
+_log = logging.getLogger(__name__)
 
 FLUSH_POLICIES = ("idle", "deadline")
 
@@ -86,17 +104,117 @@ def default_workers(backend: str) -> int:
 
     host/scanned — a small pool of host threads: while one worker waits on
     the device (PyTorch releases the GIL there) the others assemble and
-    dispatch further batches.  sharded (one worker per device in the JAX
-    package) is not served yet (``_SHARDED``).
+    dispatch further batches.  sharded — one worker.  The JAX package runs
+    one per device, since XLA orders the programs of its one controller;
+    here the ranks of the group must meet in the collectives of one batch
+    at a time, so sharded batches run one at a time under the server's
+    lock whatever the pool, and a second worker would only wait on it.
     """
     if backend == "sharded":
-        raise NotImplementedError(_SHARDED)
+        return 1
     return 4
 
 
-_SHARDED = ("MinCutServer has no sharded backend yet: ROADMAP queue 1, "
-            "item 8 (serving over distributed/ ranks: rank 0 serves, the "
-            "other ranks follow a broadcast loop)")
+def _object_device(group) -> torch.device:
+    """Where ``broadcast_object_list`` stages its bytes on ``group``: the
+    host where the group has gloo, this rank's card for NCCL alone."""
+    if "gloo" in str(dist.get_backend(group)):
+        return torch.device("cpu")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _broadcast(msg, group):
+    """``msg`` from rank 0 of ``group`` to every rank (None on the others:
+    they receive it)."""
+    box = [msg]
+    dist.broadcast_object_list(box, src=dist.get_global_rank(
+        group or dist.group.WORLD, 0), group=group,
+        device=_object_device(group))
+    return box[0]
+
+
+def _all_ok(ok: bool, group) -> bool:
+    """Whether every rank of ``group`` is ``ok``: a MIN all-reduce of one
+    flag, after each message, so that rank 0 never enters the collectives
+    of a session that a follower lacks."""
+    flag = torch.tensor([int(ok)], dtype=torch.int32,
+                        device=_object_device(group))
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=group)
+    return bool(flag.item())
+
+
+def follow_sharded(group=None, device="cuda") -> Dict[str, int]:
+    """The loop of every rank but rank 0 of a sharded ``MinCutServer``.
+
+    Receives rank 0's broadcasts on ``group`` (None: the default group)
+    until ``stop``: on ``register`` it builds the session rank 0 built
+    (same topology, partition seed, cfg and schedule, this rank's
+    ``device``), on ``solve`` it makes the batch's ``MinCutSession.solve``
+    calls in rank 0's order — without rounding, whose answer only rank 0
+    returns.  After each message it tells the group whether it can act on
+    it (``_all_ok``): a message that it cannot receive, a session that it
+    cannot build or does not hold, is skipped on every rank (rank 0 fails
+    that batch, and repeats a stop).  A solve that raises here raised on
+    rank 0 too, or after the collectives only; the loop goes on with the
+    next one.  Returns counts of what it did: registrations, batches,
+    solves, failed solves, and messages skipped."""
+    if not dist.is_initialized():
+        raise RuntimeError("follow_sharded needs an initialized "
+                           "torch.distributed group (rank 0 serves)")
+    if dist.get_rank(group) == 0:
+        raise ValueError("rank 0 of the group runs MinCutServer; the other "
+                         "ranks follow")
+    device = torch.device(device)
+    sessions: "OrderedDict[str, MinCutSession]" = OrderedDict()
+    counts = {"registrations": 0, "batches": 0, "solves": 0, "failed": 0,
+              "skipped": 0}
+    while True:
+        try:
+            msg = _broadcast(None, group)
+        except Exception:
+            _log.exception("follow_sharded: a message was not received")
+            msg = {"op": None}
+        op = msg["op"]
+        if op == "stop":
+            _all_ok(True, group)
+            return counts
+        sess = None
+        if op == "register":
+            try:
+                prob = Problem.build(msg["instance"], n_blocks=msg["n_blocks"],
+                                     labels=msg["labels"], seed=msg["seed"])
+                sess = MinCutSession(
+                    prob, msg["cfg"], backend="sharded", device=device,
+                    schedule=msg["schedule"], precond_bs=msg["precond_bs"],
+                    group=group)
+            except Exception:
+                _log.exception("follow_sharded: a session build raised")
+        elif op == "solve":
+            sess = sessions.get(msg["key"])
+        if not _all_ok(sess is not None, group):
+            # rank 0 keeps no session of the key either
+            if op is not None:
+                sessions.pop(msg["key"], None)
+            counts["skipped"] += 1
+            continue
+        sessions[msg["key"]] = sess
+        sessions.move_to_end(msg["key"])
+        if op == "register":
+            while len(sessions) > msg["capacity"]:
+                sessions.popitem(last=False)
+            counts["registrations"] += 1
+            continue
+        counts["batches"] += 1
+        for w in msg["weights"]:
+            counts["solves"] += 1
+            try:
+                sess.solve(weights=w, rounding=None, cfg=msg["cfg"],
+                           presolve=msg["presolve"],
+                           delta_key=msg["delta_key"])
+            except Exception:         # the request's own failure, as on rank 0
+                counts["failed"] += 1
+                _log.exception("follow_sharded: a solve of batch %d raised",
+                               counts["batches"])
 
 
 @dataclasses.dataclass
@@ -132,17 +250,21 @@ class MinCutServer:
     rounding     — default rounding registry name (None = voltages only)
     backend      — session backend requests execute on.  "scanned"
                    (default) runs each micro-batch as ONE batched program;
-                   "host" solves the batch's requests one ``solve()`` at a
-                   time through the same cached sessions.  Both honor the
-                   adaptive early-exit default below.
+                   "host" and "sharded" solve the batch's requests one
+                   ``solve()`` at a time through the same cached sessions
+                   ("sharded": over the ranks of ``group``, this server on
+                   rank 0 and ``follow_sharded`` on the others).  All honor
+                   the adaptive early-exit default below.
     n_workers    — dispatch worker threads pulling ready batches from the
-                   shared admission queue (default 4 — see
-                   ``default_workers``)
+                   shared admission queue (default: 4, one for "sharded" —
+                   see ``default_workers``)
     flush_policy — "idle" (default): a partial batch flushes as soon as
                    any worker is idle; "deadline": strict size-or-deadline
                    triggers (the legacy single-worker behavior)
     device       — where every session of the server solves ("cuda", or
                    "cpu" for the kernels' plain versions)
+    group        — the sharded backend's process group (None: the default
+                   group, or a world of one)
     """
 
     # server default: the adaptive early-exit schedule — converged
@@ -158,9 +280,7 @@ class MinCutServer:
                  rounding: Optional[str] = "two_level", seed: int = 0,
                  backend: str = "scanned", presolve: bool = False,
                  warm_capacity: int = 32, n_workers: Optional[int] = None,
-                 flush_policy: str = "idle", device="cuda"):
-        if backend == "sharded":
-            raise NotImplementedError(_SHARDED)
+                 flush_policy: str = "idle", device="cuda", group=None):
         if backend not in MinCutSession.BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; "
                              f"known: {MinCutSession.BACKENDS}")
@@ -171,6 +291,11 @@ class MinCutServer:
             n_workers = default_workers(backend)
         if n_workers < 1:
             raise ValueError(f"n_workers must be >= 1, got {n_workers}")
+        if backend == "sharded" and dist.is_initialized() and \
+                dist.get_rank(group) != 0:
+            raise ValueError(f"rank {dist.get_rank(group)} of the group "
+                             f"follows the server on rank 0: call "
+                             f"follow_sharded() there")
         self.cfg = cfg
         self.rounding = rounding
         self.seed = seed
@@ -179,6 +304,11 @@ class MinCutServer:
         self.n_workers = int(n_workers)
         self.flush_policy = flush_policy
         self.device = torch.device(device)
+        self.group = group
+        # sharded: one batch's broadcast and solves at a time (the ranks
+        # meet in its collectives in order); followers told to stop
+        self._sharded_lock = threading.Lock()
+        self._followers_stopped = False
         # warm-start store: (tenant, topology fingerprint) -> last converged
         # voltages for that tenant on that topology.  Tenants replay "same
         # topology, drifting weights" traffic, so the previous optimum is an
@@ -187,7 +317,13 @@ class MinCutServer:
         self._warm_capacity = warm_capacity
         self._warm_hits = 0
         self._warm_misses = 0
+        # sharded sessions run a fixed cold schedule, so tenant warm-start
+        # state is not kept there; the exclusions are counted so that the
+        # gap shows in stats()["warm"] instead of reading as misses
+        self._warm_sharded_skips = 0
         self._warm_lock = threading.Lock()
+        # registered partitions, by topology key (guarded by _warm_lock)
+        self._labels: Dict[str, np.ndarray] = {}
         self.metrics = ServeMetrics()
         # cross-request solver telemetry (PCG spend, phase walls, early-exit
         # rates) aggregated from every SolveResult.telemetry this server
@@ -213,9 +349,17 @@ class MinCutServer:
             w.start()
 
     # -- public API -----------------------------------------------------------
-    def register(self, instance: STInstance) -> str:
-        """Register a topology; returns its content-hash key."""
-        return self.cache.register(instance)
+    def register(self, instance: STInstance,
+                 labels: Optional[np.ndarray] = None) -> str:
+        """Register a topology; returns its content-hash key.  ``labels``
+        — the topology's block-Jacobi partition when the caller has one
+        (``Problem.build(labels=...)``): the server's sessions take it
+        instead of partitioning (minutes for a full-width volume)."""
+        key = self.cache.register(instance)
+        if labels is not None:
+            with self._warm_lock:
+                self._labels[key] = np.asarray(labels, dtype=np.int64)
+        return key
 
     def submit(self, topo: Union[str, STInstance], weights,
                cfg: Optional[IRLSConfig] = None,
@@ -316,7 +460,8 @@ class MinCutServer:
         with self._warm_lock:
             out["warm"] = {"entries": len(self._warm),
                            "hits": self._warm_hits,
-                           "misses": self._warm_misses}
+                           "misses": self._warm_misses,
+                           "sharded_excluded": self._warm_sharded_skips}
         out["telemetry"] = self.telemetry.snapshot()
         out["workers"] = self.worker_stats()
         return out
@@ -351,7 +496,8 @@ class MinCutServer:
         self.telemetry.clear()
 
     def stop(self, wait: bool = True) -> None:
-        """Drain pending requests, then stop the workers.  Idempotent."""
+        """Drain pending requests, then stop the workers (and, sharded,
+        the followers, once the workers are done).  Idempotent."""
         with self._cond:
             self._stopping = True
             self._cond.notify_all()
@@ -359,7 +505,22 @@ class MinCutServer:
             for w in self._workers:
                 if w.is_alive():
                     w.join()
+            if self.backend == "sharded":
+                self._stop_followers()
         self._stopped = True
+
+    def _stop_followers(self) -> None:
+        with self._sharded_lock:
+            if self._followers_stopped or not dist.is_initialized():
+                return
+            # a follower that missed the stop says so, and gets it again
+            for _ in range(3):
+                _broadcast({"op": "stop"}, self.group)
+                if _all_ok(True, self.group):
+                    break
+            else:
+                _log.error("a follower rank missed three stops")
+            self._followers_stopped = True
 
     def __enter__(self) -> "MinCutServer":
         return self
@@ -372,9 +533,28 @@ class MinCutServer:
                        device: torch.device) -> MinCutSession:
         n_blocks = (self.cfg.n_blocks if self.cfg.precond == "block_jacobi"
                     else 1)
-        prob = Problem.build(instance, n_blocks=n_blocks, seed=self.seed)
-        return MinCutSession(prob, self.cfg, backend=self.backend,
-                             device=device)
+        key = topology_fingerprint(instance)
+        with self._warm_lock:
+            labels = self._labels.get(key)
+        prob = Problem.build(instance, n_blocks=n_blocks, labels=labels,
+                             seed=self.seed)
+        sess = MinCutSession(prob, self.cfg, backend=self.backend,
+                             device=device, group=self.group)
+        if self.backend == "sharded" and dist.is_initialized():
+            # the followers build the same session (this runs under the
+            # sharded lock: the cache builds inside _solve_sharded)
+            _broadcast({"op": "register", "key": key,
+                        "instance": instance, "n_blocks": n_blocks,
+                        "labels": labels, "seed": self.seed, "cfg": self.cfg,
+                        "schedule": sess.schedule,
+                        "precond_bs": sess.precond_bs,
+                        "capacity": self.cache.capacity}, self.group)
+            if not _all_ok(True, self.group):
+                raise RuntimeError(
+                    f"a follower rank could not build the session of "
+                    f"topology {key[:8]} (see its log); the next request "
+                    f"builds it again")
+        return sess
 
     def _claim_batch(self) -> Optional[MicroBatch]:
         """Block until a batch is ready (claimed) or shutdown is complete.
@@ -425,6 +605,10 @@ class MinCutServer:
         """Stored voltages for (tenant, topology), None on miss."""
         if tenant is None:
             return None
+        if self.backend == "sharded":
+            with self._warm_lock:
+                self._warm_sharded_skips += 1
+            return None
         with self._warm_lock:
             v0 = self._warm.get((tenant, topo_key))
             if v0 is None:
@@ -436,13 +620,84 @@ class MinCutServer:
 
     def _warm_store(self, tenant: Optional[str], topo_key: str,
                     res: SolveResult) -> None:
-        if tenant is None:
+        if tenant is None or self.backend == "sharded":
             return
         with self._warm_lock:
             self._warm[(tenant, topo_key)] = np.asarray(res.voltages)
             self._warm.move_to_end((tenant, topo_key))
             while len(self._warm) > self._warm_capacity:
                 self._warm.popitem(last=False)
+
+    def _solve(self, batch: MicroBatch, wid: int):
+        """One host or scanned batch: ``(t_dispatch, v0, results)``."""
+        reqs: List[_Request] = batch.requests
+        topo_key, cfg, rounding, tenant, presolve = batch.key
+        # assembly: everything between batch pickup and solver dispatch —
+        # session cache lookup (possibly a compile) and warm-start staging
+        with trace.span("serve.assembly", topo=topo_key[:8], worker=wid):
+            sess = self.cache.get(topo_key)
+            v0 = self._warm_lookup(tenant, topo_key)
+        t_dispatch = time.perf_counter()
+        # tenant doubles as the weight-sequence identity for the session's
+        # delta-staging cache: a tenant replaying "same topology, drifting
+        # weights" restages only the changed ELL slots (and patches presolve
+        # kernels) between solves
+        dks = None if tenant is None else [tenant] * len(reqs)
+        if self.backend == "scanned" and not presolve:
+            results = sess.solve_batch(
+                [r.weights for r in reqs], rounding=rounding, cfg=cfg,
+                pad_to=batch.bucket,
+                warm_from=None if v0 is None else [v0] * len(reqs),
+                delta_keys=dks)
+        elif self.backend == "scanned":
+            # presolve batches group by kernel topology inside the session
+            # and run cold (the kernel basis shifts with the weights, so
+            # prior voltages do not transfer)
+            results = sess.solve_batch([r.weights for r in reqs],
+                                       rounding=rounding, cfg=cfg,
+                                       presolve=True, delta_keys=dks)
+        else:
+            # host: no batched program — the batch still amortizes the
+            # cached session, one solve per request
+            results = [sess.solve(weights=r.weights, rounding=rounding,
+                                  cfg=cfg, presolve=presolve, warm_from=v0,
+                                  delta_key=tenant)
+                       for r in reqs]
+        return t_dispatch, v0, results
+
+    def _solve_sharded(self, batch: MicroBatch, wid: int):
+        """One sharded batch: ``(t_dispatch, results)``, a result or the
+        request's own exception per request.  The session lookup (whose
+        build broadcasts a registration), the batch's broadcast and its
+        solves hold the sharded lock, so every rank sees one order of
+        collectives.  No warm state (a fixed cold schedule); the tenant
+        still names the solver's delta refill."""
+        reqs: List[_Request] = batch.requests
+        topo_key, cfg, rounding, tenant, presolve = batch.key
+        with self._sharded_lock:
+            with trace.span("serve.assembly", topo=topo_key[:8], worker=wid):
+                sess = self.cache.get(topo_key)
+                self._warm_lookup(tenant, topo_key)
+            t_dispatch = time.perf_counter()
+            ws = [r.weights for r in reqs]
+            if dist.is_initialized():
+                _broadcast({"op": "solve", "key": topo_key, "weights": ws,
+                            "cfg": cfg, "presolve": presolve,
+                            "delta_key": tenant}, self.group)
+                if not _all_ok(True, self.group):
+                    self.cache.drop(topo_key)
+                    raise RuntimeError(
+                        f"a follower rank holds no session of topology "
+                        f"{topo_key[:8]}; the next request builds it again")
+            results = []
+            for w in ws:
+                try:
+                    results.append(sess.solve(weights=w, rounding=rounding,
+                                              cfg=cfg, presolve=presolve,
+                                              delta_key=tenant))
+                except Exception as e:      # this request's own failure
+                    results.append(e)
+        return t_dispatch, results
 
     def _execute(self, batch: MicroBatch, wid: int) -> None:
         reqs: List[_Request] = batch.requests
@@ -454,40 +709,11 @@ class MinCutServer:
                         reason=batch.reason, backend=self.backend,
                         worker=wid, topo=topo_key[:8]):
             try:
-                # assembly: everything between batch pickup and solver
-                # dispatch — session cache lookup (possibly a compile) and
-                # warm-start staging
-                with trace.span("serve.assembly", topo=topo_key[:8],
-                                worker=wid):
-                    sess = self.cache.get(topo_key)
-                    v0 = self._warm_lookup(tenant, topo_key)
-                t_dispatch = time.perf_counter()
-                # tenant doubles as the weight-sequence identity for the
-                # session's delta-staging cache: a tenant replaying "same
-                # topology, drifting weights" restages only the changed
-                # ELL slots (and patches presolve kernels) between solves
-                dks = None if tenant is None else [tenant] * len(reqs)
-                if self.backend == "scanned" and not presolve:
-                    results = sess.solve_batch(
-                        [r.weights for r in reqs], rounding=rounding, cfg=cfg,
-                        pad_to=batch.bucket,
-                        warm_from=None if v0 is None else [v0] * len(reqs),
-                        delta_keys=dks)
-                elif self.backend == "scanned":
-                    # presolve batches group by kernel topology inside the
-                    # session and run cold (the kernel basis shifts with
-                    # the weights, so prior voltages do not transfer)
-                    results = sess.solve_batch([r.weights for r in reqs],
-                                               rounding=rounding, cfg=cfg,
-                                               presolve=True, delta_keys=dks)
+                if self.backend == "sharded":
+                    v0 = None
+                    t_dispatch, results = self._solve_sharded(batch, wid)
                 else:
-                    # host: no batched program — the batch still amortizes
-                    # the cached session, one solve per request
-                    results = [sess.solve(weights=r.weights,
-                                          rounding=rounding, cfg=cfg,
-                                          presolve=presolve, warm_from=v0,
-                                          delta_key=tenant)
-                               for r in reqs]
+                    t_dispatch, v0, results = self._solve(batch, wid)
             except Exception as e:
                 now = time.perf_counter()
                 for r in reqs:
@@ -513,6 +739,10 @@ class MinCutServer:
             if not r.future.set_running_or_notify_cancel():
                 self.metrics.record_cancelled()
                 continue
+            if isinstance(res, Exception):
+                self.metrics.record_request({}, now, failed=True)
+                r.future.set_exception(res)
+                continue
             timings = dict(res.timings)
             timings["queue"] = t_exec - r.t_submit
             timings["assembly"] = assembly
@@ -529,7 +759,7 @@ class MinCutServer:
                 tel = dict(tel)
                 tel["phases"] = timings
                 tel["worker"] = wid
-                if tenant is not None:
+                if tenant is not None and self.backend != "sharded":
                     tel["warm_start"] = warm_hit
                 self.telemetry.add(tel)
                 self.metrics.record_solve_cost(tel.get("flops"),

@@ -161,6 +161,46 @@ def test_matvec_coo_ell_dense_agree(fixture, request):
         rtol=1e-5, atol=1e-4 * scale)
 
 
+@pytest.mark.parametrize("fixture", ["grid_instance", "road_instance"])
+@pytest.mark.parametrize("lanes", [None, 3])
+def test_coo_segment_plan_reproduces_scatters(fixture, lanes, request):
+    """The COO matvec and the degrees sum each node's edges in a fixed
+    order (``incidence.CooPlan``, no atomics).  On the CPU that order is
+    ``index_add_``'s, so the bits are those of the scatter form, for one
+    instance and for every lane of a batch; and the JAX package's operators
+    agree within float32 rounding (rtol 1e-5, atol 1e-4·max|y|, as above)."""
+    inst, _ = _reordered(request.getfixturevalue(fixture))
+    g = device_graph_from_instance(inst, device="cpu")
+    rng = np.random.default_rng(11)
+    shape = (inst.n,) if lanes is None else (lanes, inst.n)
+    v = torch.as_tensor(rng.uniform(0, 1, shape).astype(np.float32))
+    x = torch.as_tensor(rng.standard_normal(shape).astype(np.float32))
+    rw = lap.reweight(g, v, 1e-3)
+    deg = torch.zeros_like(rw.r[..., :1].expand(rw.r.shape[:-1] + (g.n,))
+                           ).contiguous()
+    deg.index_add_(-1, g.src, rw.r)
+    deg.index_add_(-1, g.dst, rw.r)
+    assert torch.equal(rw.diag, deg + rw.r_s + rw.r_t)
+    flux = rw.r * (x[..., g.src] - x[..., g.dst])
+    y_ref = (torch.zeros_like(x).index_add_(-1, g.src, flux)
+             - torch.zeros_like(x).index_add_(-1, g.dst, flux)
+             + (rw.r_s + rw.r_t) * x)
+    y = lap.matvec_coo(g, rw, x)
+    assert torch.equal(y, y_ref)
+    from repro.core.incidence import device_graph_from_instance as jdg
+    jg = jdg(inst)
+    for lane in range(1 if lanes is None else lanes):
+        vl, xl = (v, x) if lanes is None else (v[lane], x[lane])
+        jrw = jlap.reweight(jg, jnp.asarray(vl.numpy()), 1e-3)
+        diag = rw.diag if lanes is None else rw.diag[lane]
+        np.testing.assert_allclose(diag.numpy(), np.asarray(jrw.diag),
+                                   rtol=1e-5)
+        jy = np.asarray(jlap.matvec_coo(jg, jrw, jnp.asarray(xl.numpy())))
+        yl = y if lanes is None else y[lane]
+        np.testing.assert_allclose(yl.numpy(), jy, rtol=1e-5,
+                                   atol=1e-4 * float(np.abs(jy).max()))
+
+
 # ---------------------------------------------------------------------------
 # PCG: the cases of tests/test_pcg.py
 # ---------------------------------------------------------------------------
@@ -361,6 +401,64 @@ def test_rounding_matches_jax(fixture, request):
     t = mf.max_flow(pinst)
     assert t.value == j.value
     np.testing.assert_array_equal(t.in_source, j.in_source)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_sweep_plan_evaluates_every_prefix(seed):
+    """The sweep sums each node's edge ends in the plan's order and writes
+    the sum to the node's rank: every prefix cut is the float64 count of
+    the same prefix (a random multigraph with self-loops and parallel
+    edges), and the chosen side is the best prefix."""
+    from repro_torch.core.incidence import coo_plan
+    rng = np.random.default_rng(seed)
+    n, m = 40, 200
+    src = rng.integers(0, n, m)
+    dst = np.where(rng.uniform(size=m) < 0.1, src, rng.integers(0, n, m))
+    w = rng.uniform(0.1, 3, m)
+    s_w, t_w = rng.uniform(0, 2, n) * (rng.uniform(size=n) < 0.5), \
+        rng.uniform(0, 2, n) * (rng.uniform(size=n) < 0.5)
+    v = rng.uniform(0, 1, n).astype(np.float32)
+    ts, td = torch.as_tensor(src), torch.as_tensor(dst)
+
+    def f32(a):
+        return torch.as_tensor(a, dtype=torch.float32)
+
+    ind, val = rd.sweep_cut_torch(ts, td, f32(w), f32(s_w), f32(t_w),
+                                  torch.as_tensor(v), coo_plan(ts, td, n))
+    order = np.argsort(-v, kind="stable")
+
+    def cut(inside):
+        cross = inside[src] != inside[dst]
+        return w[cross].sum() + s_w[~inside].sum() + t_w[inside].sum()
+
+    prefix = []
+    for i in range(n + 1):
+        inside = np.zeros(n, bool)
+        inside[order[:i]] = True
+        prefix.append(cut(inside))
+    assert float(val) == pytest.approx(min(prefix), rel=1e-5)
+    assert cut(ind.numpy()) == pytest.approx(min(prefix), rel=1e-5)
+
+
+def test_sweep_reuses_its_topology_plan(grid_instance):
+    """Requests of one topology share its index arrays
+    (``Problem.instance_with``), so the sweep sorts their ends once."""
+    from repro_torch.core.session import Problem
+    prob = Problem.build(_port(grid_instance), n_blocks=1)
+    w = prob.instance.graph.weight
+    one = prob.instance_with((w, prob.instance.s_weight,
+                              prob.instance.t_weight))
+    two = prob.instance_with((w * 2, prob.instance.s_weight,
+                              prob.instance.t_weight))
+    assert rd._topology(one.graph, "cpu") is rd._topology(two.graph, "cpu")
+    fresh = one._replace(graph=one.graph._replace(
+        src=one.graph.src.copy(), dst=one.graph.dst.copy()))
+    assert rd._topology(fresh.graph, "cpu") is not rd._topology(one.graph,
+                                                                 "cpu")
+    v = np.random.default_rng(3).uniform(0, 1, one.n).astype(np.float32)
+    a, b = (rd.sweep_cut(i, v, device="cpu") for i in (one, fresh))
+    np.testing.assert_array_equal(a.in_source, b.in_source)
+    assert a.cut_value == b.cut_value
 
 
 def test_maxflow_tiny_instance():

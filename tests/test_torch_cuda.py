@@ -606,7 +606,7 @@ def test_block_diag_matvec_lanes_of_blocks(cuda):
     """A batch's explicit inverses as the batched preconditioner makes them,
     [B·P, bs, bs] (B = 3 lanes of a 16³ grid's 8³ boxes), and x gathered
     from the lanes' vectors."""
-    from repro_torch.core import DeviceGraph, Problem, laplacian as lap
+    from repro_torch.core import Problem, laplacian as lap
     from repro_torch.core import precond as pc
     from repro_torch.graphs import generators as gen
 
@@ -622,8 +622,7 @@ def test_block_diag_matvec_lanes_of_blocks(cuda):
     rng = np.random.default_rng(4)
     scale = torch.as_tensor(rng.uniform(0.5, 2.0, (3, 1)), dtype=torch.float32,
                             device=cuda)
-    gb = DeviceGraph(src=g.src, dst=g.dst, c=g.c * scale, c_s=g.c_s * scale,
-                     c_t=g.c_t * scale)
+    gb = g._replace(c=g.c * scale, c_s=g.c_s * scale, c_t=g.c_t * scale)
     M = pc.factorize_blocks(plan, lap.initial_weights(gb), explicit_inverse=True)
     assert M.inv.shape == (3 * plan.p, plan.bs, plan.bs)
     v = torch.as_tensor(rng.standard_normal((3, g.n)), dtype=torch.float32,
@@ -794,3 +793,29 @@ def test_sharded_world_one_kernel_route_matches_plain_route(
     assert out[True][1] == pytest.approx(out[False][1], rel=1e-5)
     if kernel == "edge_reweight":
         np.testing.assert_array_equal(out[True][0], out[False][0])
+
+
+def test_coo_scatters_and_sweep_are_deterministic_on_the_card(cuda):
+    """The COO matvec, the degrees and the sweep rounding sum in a fixed
+    order (no atomics): two calls on the card give the same bits, for one
+    instance and for a batch of 8 lanes, without deterministic mode."""
+    from repro_torch.core import laplacian as lap
+    from repro_torch.core import rounding as rd
+    from repro_torch.core.incidence import device_graph_from_instance
+    from repro_torch.graphs import generators as gen
+
+    g2 = gen.grid_3d(24, 24, 24, conn=26, seed=2)
+    inst = gen.segmentation_instance(g2, (24, 24, 24), seed=3)
+    g = device_graph_from_instance(inst, device=cuda)
+    gen_t = torch.Generator(device=cuda).manual_seed(5)
+    for shape in ((g.n,), (8, g.n)):
+        v = torch.rand(shape, generator=gen_t, device=cuda)
+        x = torch.randn(shape, generator=gen_t, device=cuda)
+        a = lap.reweight(g, v, 1e-6)
+        b = lap.reweight(g, v, 1e-6)
+        assert torch.equal(a.diag, b.diag)
+        assert torch.equal(lap.matvec_coo(g, a, x), lap.matvec_coo(g, b, x))
+    src, dst = g.src.long(), g.dst.long()
+    one = rd.sweep_cut_torch(src, dst, g.c, g.c_s, g.c_t, v[0], g.coo)
+    two = rd.sweep_cut_torch(src, dst, g.c, g.c_s, g.c_t, v[0], g.coo)
+    assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])

@@ -121,8 +121,9 @@ def test_ext_stage_program_equals_internal_stage(warm):
     g = prob.device_graph(device="cpu")
     plan = prob.ell_plan("cpu")
     ext = make_scanned_program(g.src, g.dst, cfg, ell_plan=plan, warm=warm,
-                               ext_stage=True)
-    own = make_scanned_program(g.src, g.dst, cfg, ell_plan=plan, warm=warm)
+                               ext_stage=True, coo=g.coo)
+    own = make_scanned_program(g.src, g.dst, cfg, ell_plan=plan, warm=warm,
+                               coo=g.coo)
     scale = torch.tensor([[1.0], [1.3], [0.7]])
     C, CS, CT = g.c * scale, g.c_s * scale, g.c_t * scale
     tail = [torch.full_like(CS, 0.5)] if warm else []
@@ -140,9 +141,11 @@ def test_ext_stage_needs_the_fused_ell_path():
         cfg = IRLSConfig(**dict(ELL, **kw))
         with pytest.raises(ValueError, match="ext_stage"):
             make_scanned_program(g.src, g.dst, cfg,
-                                 ell_plan=prob.ell_plan("cpu"), ext_stage=True)
+                                 ell_plan=prob.ell_plan("cpu"), ext_stage=True,
+                                 coo=g.coo)
     with pytest.raises(ValueError, match="ext_stage"):
-        make_scanned_program(g.src, g.dst, IRLSConfig(**ELL), ext_stage=True)
+        make_scanned_program(g.src, g.dst, IRLSConfig(**ELL), ext_stage=True,
+                             coo=g.coo)
 
 
 # ---------------------------------------------------------------------------

@@ -99,6 +99,23 @@ def test_port_distributed_modules_stand_alone():
                      "repro_torch.distributed.solver"}
 
 
+def test_port_perf_gate_modules_stand_alone():
+    """The perf gate (``obs.perf``: schema, history, regress and the work
+    counts of ``profile``) and its ``launch.bench_diff`` CLI import with
+    ``jax`` blocked and bring in no ``repro`` module."""
+    probe = _PROBE.replace("print(len(names))", "print(' '.join(names))")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", probe], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    names = set(out.stdout.split())
+    assert names >= {"repro_torch.obs.perf", "repro_torch.obs.perf.schema",
+                     "repro_torch.obs.perf.history",
+                     "repro_torch.obs.perf.regress",
+                     "repro_torch.obs.perf.profile",
+                     "repro_torch.launch.bench_diff"}
+
+
 def test_port_sources_name_no_jax_or_repro():
     """No source file of the port spells an import of jax or of repro."""
     for path in (SRC / "repro_torch").rglob("*.py"):

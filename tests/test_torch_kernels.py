@@ -189,7 +189,7 @@ def test_block_jacobi_batched_is_per_lane(road_instance):
     """A batch's blocks form one flat (B·P) block batch: applying the
     batched preconditioner equals applying each lane's own."""
     from repro.graphs import partition as jgp
-    from repro_torch.core import DeviceGraph, laplacian as lap, precond as pc
+    from repro_torch.core import laplacian as lap, precond as pc
     from repro_torch.core.incidence import device_graph_from_instance
     from repro_torch.graphs.structures import instance_from_arrays
 
@@ -203,8 +203,7 @@ def test_block_jacobi_batched_is_per_lane(road_instance):
                                device="cpu")
     rng = np.random.default_rng(2)
     scale = torch.as_tensor(rng.uniform(0.5, 2.0, (_B, 1)), dtype=torch.float32)
-    gb = DeviceGraph(src=g.src, dst=g.dst, c=g.c * scale, c_s=g.c_s * scale,
-                     c_t=g.c_t * scale)
+    gb = g._replace(c=g.c * scale, c_s=g.c_s * scale, c_t=g.c_t * scale)
     rw = lap.initial_weights(gb)
     x = torch.as_tensor(rng.standard_normal((_B, g.n)), dtype=torch.float32)
     M = pc.factorize_blocks(plan, rw, explicit_inverse=True)
@@ -222,6 +221,7 @@ def test_each_kernel_has_one_plain_version():
     held against its plain version is held against that path; the unfused
     reweight takes its r_e from the kernel wrapper under use_pallas."""
     from repro_torch.core import DeviceGraph, laplacian as lap, precond as pc
+    from repro_torch.core.incidence import coo_plan
 
     assert ref.ell_spmv_ref is lap.matvec_ell
     assert ref.fused_ell_sweep_ref is lap.fused_ell_sweep
@@ -229,11 +229,13 @@ def test_each_kernel_has_one_plain_version():
     assert ref.block_diag_matvec_ref is pc.block_diag_matvec
     rng = np.random.default_rng(5)
     n, m = 50, 200
-    g = DeviceGraph(src=torch.as_tensor(rng.integers(0, n, m)),
-                    dst=torch.as_tensor(rng.integers(0, n, m)),
+    src = torch.as_tensor(rng.integers(0, n, m))
+    dst = torch.as_tensor(rng.integers(0, n, m))
+    g = DeviceGraph(src=src, dst=dst,
                     c=torch.as_tensor(rng.uniform(0.1, 3, m), dtype=torch.float32),
                     c_s=torch.as_tensor(rng.uniform(0, 2, n), dtype=torch.float32),
-                    c_t=torch.as_tensor(rng.uniform(0, 2, n), dtype=torch.float32))
+                    c_t=torch.as_tensor(rng.uniform(0, 2, n), dtype=torch.float32),
+                    coo=coo_plan(src, dst, n))
     v = torch.as_tensor(rng.uniform(0, 1, n), dtype=torch.float32)
     for a, b in zip(lap.reweight(g, v, 1e-6),
                     lap.reweight(g, v, 1e-6, edge_r=ops.edge_reweight_r)):

@@ -117,11 +117,11 @@ def test_mincut_serve_cli_matches_reference(tmp_path, monkeypatch, capsys,
         monkeypatch)
     got = json.loads((tmp_path / "port.json").read_text())
     want = json.loads((tmp_path / "ref.json").read_text())
-    # the port's stats add the server's device; its warm store has no
-    # sharded exclusions to count (no sharded backend)
+    # the port's stats add the server's device; its warm store counts the
+    # sharded exclusions as the reference's does
     assert set(got) == set(want) | {"device"}
     assert got["device"] == "cpu"
-    assert set(got["warm"]) == set(want["warm"]) - {"sharded_excluded"}
+    assert set(got["warm"]) == set(want["warm"])
     assert set(got["telemetry"]) == set(want["telemetry"])
     assert got["completed"] == want["completed"] == 8
     assert got["failed"] == want["failed"] == 0

@@ -318,7 +318,7 @@ def test_later_slices_raise(grid_instance):
     g = ts.problem.device_graph(device="cpu")
     with pytest.raises(ValueError, match="ext_stage"):
         make_scanned_program(g.src, g.dst, IRLSConfig(**KERNEL),
-                             ext_stage=True)
+                             ext_stage=True, coo=g.coo)
     keyed = ts.solve_batch(ws, rounding=None, delta_keys=["a"] * B)
     plain = ts.solve_batch(ws, rounding=None)
     for a, b in zip(keyed, plain):

@@ -222,7 +222,8 @@ def test_server_answers_equal_solve_batch(grid):
         stats = srv.stats()
     assert stats["batch_sizes"] == [8, 8]
     assert stats["flush_reasons"]["size"] == 2
-    assert stats["warm"] == {"entries": 1, "hits": 1, "misses": 1}
+    assert stats["warm"] == {"entries": 1, "hits": 1, "misses": 1,
+                             "sharded_excluded": 0}
     sess = MinCutSession(Problem.build(grid, n_blocks=1), CFG,
                          backend="scanned", device="cpu")
     want = sess.solve_batch(ws, rounding="sweep")
@@ -418,15 +419,17 @@ def test_server_host_backend_per_request_solves(grid):
 
 
 def test_server_rejects_unknown_backend_and_later_slices():
-    """Only the sharded backend is a later slice; presolve is ported."""
+    """No backend is left to a later slice: presolve and the sharded
+    backend are ported (the sharded one serves with one worker: its
+    batches run one at a time; tests/test_torch_serve_sharded.py serves
+    through it)."""
     with pytest.raises(ValueError):
         _server(backend="warp")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*distributed/"):
-        _server(backend="sharded")
+    with _server(backend="sharded") as srv:
+        assert srv.n_workers == 1
     with _server(presolve=True) as srv:
         assert srv.presolve
-    with pytest.raises(NotImplementedError, match="ROADMAP.*distributed/"):
-        default_workers("sharded")
+    assert default_workers("sharded") == 1
     assert default_workers("scanned") == 4
 
 
