@@ -122,7 +122,7 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
        keyed ``solve_batch`` at B = 8 bit-equal to keyless; a one-worker
        server without warm starts gives tenant requests the bits of the
        same requests without a tenant; a 30% drift stages ``full``.
-    c. Presolve on the road family at side 1024 (n = 1,048,576) in 11b's
+    c. Presolve on the road family at side 768 (n = 589,824) in 11b's
        config, host backend: kernel size, kernelize seconds and launches
        (as the PCG trace says); the certificate exact (rel_gap 0) and the
        cut its lifted cut; the lifted cut within rel 1e-3 of the solve
@@ -152,7 +152,7 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
        and host work; 2 IRLS iterations of a 64-pair wave profiled;
        ``edge_reweight`` alone at B = 64 over the grid, bit for bit and
        timed as in phase 7.
-    b. At side 10 in batches of up to 8, under deterministic algorithms,
+    b. At side 8 in batches of up to 8, under deterministic algorithms,
        builds on the kernel route, the plain route and the kernel route
        again: the three trees equal (parent, weight, stored sides,
        acceptance order).
@@ -247,6 +247,37 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
        history under ``chiprun_out/``, and ``launch.bench_diff
        --from-payload`` as a subprocess: exit 0 with 0 regressed on an
        unchanged rerun, exit 1 on 15a's payload with its wall doubled.
+
+16. LM training (no kernel: the reference trains through none; every
+    kernel's launch count must stay 0 on this path).
+    a. The flash backward at training shapes in bf16: qwen2-1.5b's
+       attention ([2, 4096, 12, 128] over 2 KV heads, causal, chunks
+       512/1024) and one gemma3-27b local layer (32/16 heads, B = 1,
+       window 1024 at S 4096: the banded path).  ``FlashAttention``'s
+       recomputing backward against autograd through the plain forward
+       (no custom backward): dq, dk and dv within 1e-2 of their own max;
+       both backward times (CUDA events) and both peak memories, the
+       recomputing one's below.
+    b. ``build_train_step(lm_loss, AdamWConfig())`` on qwen2-1.5b at full
+       width and 14 of its 28 layers (remat; the phase's time cut the depth)
+       over ``TokenStream(vocab, 4, 4096)``: a warm-up step, the same step
+       in 2 microbatches from the same state (loss within rel 1e-3,
+       grad_norm within rel 2e-2, gradient within 5e-2 of its norm), the
+       first half of the batch alone (logged: how far a gradient missing
+       half the batch lands), then 3 timed steps from that state again (s
+       a step, tok/s, peak memory, each step's loss, grad_norm and lr; all
+       finite, the first loss within 25% of ln V);
+       ``use_pallas_attention=True`` under grad raises.
+    c. ``TrainController`` at full width and depth 2 (~3.3 GB of state):
+       run A 4 steps checkpointed every 2; run B 2 steps, then a fresh
+       controller resumes on its default device, the card, and takes 2
+       more: restored leaves bit-equal to
+       B's state, B's losses at steps 3–4 within rel 1e-3 of A's; B's
+       resume (the restore), a sync save and an async save of A's state
+       timed; one step at this depth profiled (device time by kernel, busy
+       share).
+    d. ``launch.train --reduced --steps 6 --ckpt-every 3`` on the card,
+       then ``--steps 9``: the journal shows ``resumed`` at step 6.
 
 TF32 is switched off for matmuls and cuDNN, so every float32 product is a
 full float32 product.  The last two lines of standard output are the
@@ -1324,7 +1355,7 @@ def lm_phase(cfg, batch: int, seq: int, gen_len: int, seed: int):
     dev = torch.device("cuda")
     t = time.perf_counter()
     params = tr.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
-                            device=dev)
+                            device=dev).tree()
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t
     t = time.perf_counter()
@@ -1421,8 +1452,11 @@ def lm_phase(cfg, batch: int, seq: int, gen_len: int, seed: int):
 
 # delta staging traffic: the reference CLI's --drift-sparsity 0.01 --drift 0.05
 DRIFT_FRAC, DRIFT_SIGMA = 0.01, 0.05
-# presolve's full-width instance: the reference CLI's --family road
-ROAD_SIDE = 1024
+# presolve's instance: the reference CLI's --family road at side 768 (n =
+# 589,824), cut from 1024 for the run's time beside phase 16: at 1024 the
+# run took 1,138.4-1,196.5 s of its 1,200 s (two kernelizes of 50-78 s,
+# linear in n)
+ROAD_SIDE = 768
 
 
 def drift_edges(rng, c, frac: float, sigma: float = DRIFT_SIGMA, among=None):
@@ -1934,12 +1968,15 @@ def cli_phase(out_dir: Path):
 # batches of up to 64 pair solves: each pair solve costs ~35-50 ms of
 # launches (the batched PCG's per-lane inner products), so a side-64 tree
 # (~4,800 solves) takes 165-250 s and a side-48 one 155-184 s, more than
-# the run can give it beside the other phases
+# the run can give it beside the other phases.  Side 32 is no cut: its
+# single-node global cut sets off speculation that is discarded (1,681
+# solves for 1,023 edges, 119.5 s), and its 25 pairs missed Dinic by 7.5e-2
 CUTTREE_SIDE, CUTTREE_BATCH = 40, 64
-# 12b's route check (in batches of up to ROUTE_BATCH) and the exact oracles
-# of 12c and 12d, at a side where their IRLS builds and repairs fit the
-# run's time and where Dinic takes milliseconds a pair
-ROUTE_SIDE, ROUTE_BATCH, EXACT_SIDE = 10, 8, 10
+# 12b's route check (in batches of up to ROUTE_BATCH; three builds, 67 s
+# at side 10, cut to 8 for the run's time beside phase 16) and the exact
+# oracles of 12c and 12d, at sides where their IRLS builds and repairs fit
+# the run's time and where Dinic takes milliseconds a pair
+ROUTE_SIDE, ROUTE_BATCH, EXACT_SIDE = 8, 8, 10
 # random pair queries on the finished tree; pairs checked against Dinic
 # (the reference CLI's --verify-pairs gate at its --verify-rtol 1e-3)
 TREE_QUERIES, VERIFY_PAIRS = 10000, 25
@@ -2888,7 +2925,7 @@ def moe_alone(cfg, seed: int):
     one = dataclasses.replace(cfg, n_layers=1)
     params = tr.init_params(one, torch.Generator(device=dev).manual_seed(
         seed + 14), device=dev)
-    lp = params.layer(0)
+    lp = tr.layer_params(params.tree(), 0)
     p = nn.MoEParams(router=lp["router"], w1=lp["w1"], w3=lp["w3"],
                      w2=lp["w2"])
     E, k, cf = cfg.moe.n_experts, cfg.moe.top_k, cfg.moe.capacity_factor
@@ -2979,11 +3016,13 @@ def moe_serve(cfg, batch: int, seq: int, gen_len: int, seed: int):
     dev = torch.device("cuda")
     torch.cuda.synchronize()
     t = time.perf_counter()
-    params = tr.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
-                            device=dev)
+    model = tr.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t
-    weight_bytes = sum(nbytes(p) for p in params.parameters())
+    weight_bytes = sum(nbytes(p) for p in model.parameters())
+    params = model.tree()
+    del model
     prompts = token_batch(cfg.vocab, batch, seq, seed=seed)
     log(f"[moe] {cfg.name} at depth {cfg.n_layers}: {cfg.param_count():,} "
         f"parameters ({weight_bytes / 1e9:.2f} GB, {cfg.dtype}), "
@@ -3152,7 +3191,7 @@ def moe_mixtral_phase(cfg, batch: int, seq: int, gen_len: int, seed: int):
                                     k_chunk=FRESH_CHUNK)
     with recorded_routes() as routes_f:
         h, _ = tr.forward(params, full, fresh_cfg)
-    logits_f = (h[:, last_pos] @ params.embed.T).float()
+    logits_f = (h[:, last_pos] @ params["embed"].T).float()
     del h
     S = full.shape[1]
     if not all(bool(keep.all())
@@ -3549,6 +3588,473 @@ def perf_gate_phase(inst, labels, n_blocks: int, cfg, kern: dict,
                 launches=launched["kernel"])
 
 
+# -- phase 16: LM training at full width ----------------------------------------
+
+# 16a: the flash backward at training shapes, (label, B, S, H, KV, D,
+# window, q_chunk, k_chunk): qwen2-1.5b's attention (causal, the config's
+# chunks) and one gemma3-27b local layer (window 1024 at S 4096: the banded
+# path)
+TRAIN_BWD_SHAPES = (("qwen2-1.5b", 2, 4096, 12, 2, 128, None, 512, 1024),
+                    ("gemma3-27b local", 1, 4096, 32, 16, 128, 1024, 512,
+                     1024))
+# each gradient of the recomputing backward against autograd through the
+# plain forward, of its own max |·|: both sides sum in float32 and round
+# once to bf16 (u = 2^-8), other float32 orders below that
+TRAIN_BWD_RTOL = 1e-2
+# 16b: qwen2-1.5b at full width, the train_4k cell's sequence length at
+# batch 4 on one card, at 14 of its 28 layers: at 28 the phase took 99.8 s
+# of its ~90 s, at 14 85.9 s.  Depth costs the run ~0.8 s a layer and the
+# host phases vary by ~70 s between runs, so the run's margin under 1,200 s
+# comes from phases 11c and 12b (at their earlier sizes and 7 layers the
+# run took 1,177.6 s)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 4096, 3
+TRAIN_LAYERS = 14
+# the microbatched step (two halves of the batch, each its own forward:
+# bf16 GEMMs of other shapes round elsewhere; the halves' gradients summed
+# in float32 where one batch's are rounded to bf16) against one batch's:
+# its loss, its grad_norm, and its gradient as the first moments hold it
+# after the step (m = (1 - b1)·g below the clip norm), as ||Δm|| / ||m||
+MICRO_RTOL = 1e-3
+MICRO_NORM_RTOL = 2e-2
+MICRO_GRAD_RTOL = 5e-2
+# 16c: depth 2 of 28 at full width (3.27e8 bf16 parameters, float32
+# moments: ~3.3 GB of state); resumed losses against the uninterrupted
+# run's (bit-equality logged: the embedding's backward adds with atomics)
+CKPT_LAYERS = 2
+RESUME_RTOL = 1e-3
+
+
+def plain_attention(q, k, v, window, q_chunk, k_chunk):
+    """The blockwise forward with no custom backward: autograd records every
+    tile (what the recomputing backward avoids)."""
+    from repro_torch.models import layers as nn
+
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    out, _ = nn._flash_fwd_impl(q.reshape(B, S, KV, H // KV, D), k, v,
+                                causal=True, window=window, q_offset=0,
+                                q_chunk=q_chunk, k_chunk=k_chunk,
+                                scale=1.0 / D ** 0.5)
+    return out.reshape(B, S, H, D).to(q.dtype)
+
+
+def flash_backward_phase(seed: int):
+    """Phase 16a: ``FlashAttention`` (the tile-recomputing backward) against
+    autograd through the plain forward at training shapes in bf16: each
+    gradient within TRAIN_BWD_RTOL of its own max; both backward times
+    (CUDA events) and both peak memories above the inputs (forward and
+    backward), the recomputing one's below the plain one's."""
+    import torch
+
+    from repro_torch.models import layers as nn
+
+    dev = torch.device("cuda")
+    out = {}
+    for label, B, S, H, KV, D, window, qc, kc in TRAIN_BWD_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(seed + S + H)
+        q, k, v = (torch.randn((B, S, n, D), generator=gen, device=dev)
+                   .to(torch.bfloat16) for n in (H, KV, KV))
+        do = torch.randn((B, S, H, D), generator=gen, device=dev).to(
+            torch.bfloat16)
+        runs = {
+            "recompute": lambda *a: nn.flash_attention(
+                *a, causal=True, window=window, q_chunk=qc, k_chunk=kc),
+            "plain": lambda *a: plain_attention(*a, window, qc, kc)}
+        res = {}
+        for name, fwd in runs.items():
+            for _ in range(2):               # a warm-up, then the measured
+                leaves = [t.detach().clone().requires_grad_()
+                          for t in (q, k, v)]
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                o = fwd(*leaves)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                grads = torch.autograd.grad(o, leaves, grad_outputs=do)
+                end.record()
+                end.synchronize()
+                peak = torch.cuda.max_memory_allocated() - base
+                del o, leaves
+            res[name] = dict(grads=grads, bwd_ms=start.elapsed_time(end),
+                             peak_bytes=peak)
+        errs = {}
+        for i, part in enumerate("qkv"):
+            got, want = res["recompute"]["grads"][i], res["plain"]["grads"][i]
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"16a {label}: non-finite d{part}")
+            errs[part] = float((got.float() - want.float()).abs().max()
+                               / want.float().abs().max())
+        r, p = res["recompute"], res["plain"]
+        log(f"[train] 16a flash backward, {label} q [{B}, {S}, {H}, {D}] over "
+            f"{KV} KV heads, window {window}, chunks {qc}/{kc} (bf16): dq dk "
+            f"dv vs plain autograd rel {errs['q']:.2e} {errs['k']:.2e} "
+            f"{errs['v']:.2e} (tolerance {TRAIN_BWD_RTOL}); backward "
+            f"{r['bwd_ms']:.2f} ms recomputing vs {p['bwd_ms']:.2f} ms plain; "
+            f"peak {r['peak_bytes'] / 2**30:.3f} GiB vs "
+            f"{p['peak_bytes'] / 2**30:.3f} GiB")
+        if not max(errs.values()) <= TRAIN_BWD_RTOL:
+            raise AssertionError(f"16a {label}: gradients {errs}")
+        if not r["peak_bytes"] < p["peak_bytes"]:
+            raise AssertionError(f"16a {label}: recomputing peak "
+                                 f"{r['peak_bytes']} ≥ plain {p['peak_bytes']}")
+        out[label] = dict(shape=[B, S, H, KV, D], window=window,
+                          chunks=[qc, kc], rel_err=errs,
+                          bwd_ms=r["bwd_ms"], plain_bwd_ms=p["bwd_ms"],
+                          peak_bytes=r["peak_bytes"],
+                          plain_peak_bytes=p["peak_bytes"])
+        del res, q, k, v, do
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_state(cfg, opt_cfg, seed: int):
+    """Seeded parameters on the card (as the reference's pytree) and fresh
+    AdamW state."""
+    import torch
+
+    from repro_torch.models import transformer as tr
+    from repro_torch.train.optimizer import init_state
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = tr.init_params(cfg, gen, device="cuda").tree()
+    return params, init_state(opt_cfg, params)
+
+
+def train_steps_phase(seed: int):
+    """Phase 16b: ``build_train_step(lm_loss, AdamWConfig())`` on qwen2-1.5b
+    at full width and TRAIN_LAYERS of its 28 layers (``remat`` as its
+    config has it) over ``TokenStream(vocab, TRAIN_BATCH, TRAIN_SEQ)``: a
+    warm-up step,
+    the same step microbatched in two from the same state (its loss,
+    grad_norm and gradient held against the warm-up's), the first half of
+    the batch alone (how far a gradient that dropped half the batch would
+    be), then TRAIN_STEPS timed steps from that state again (launch
+    counters zeroed just before, read just after)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import lm as lm_configs
+    from repro_torch.data.lm import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tr
+    from repro_torch.train.optimizer import AdamWConfig, named_leaves
+    from repro_torch.train.train_step import build_train_step
+
+    cfg = dataclasses.replace(lm_configs.qwen2_1_5b(), n_layers=TRAIN_LAYERS)
+    opt_cfg = AdamWConfig()
+    t = time.perf_counter()
+    stream = TokenStream(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=seed)
+    batches = [torch.from_numpy(next(stream)).to("cuda")
+               for _ in range(TRAIN_STEPS + 1)]
+    data_s = time.perf_counter() - t
+    loss_fn = lambda p, b: tr.lm_loss(p, b, cfg)
+    step = build_train_step(loss_fn, opt_cfg)
+    step2 = build_train_step(loss_fn, opt_cfg, n_microbatches=2)
+    n_tok = TRAIN_BATCH * TRAIN_SEQ
+    ln_v = math.log(cfg.vocab)
+    log(f"[train] 16b {cfg.name}: {cfg.param_count():,} parameters "
+        f"({cfg.dtype}, {cfg.n_layers} layers, remat {cfg.remat}); "
+        f"{TRAIN_STEPS + 1} batches of {TRAIN_BATCH}x{TRAIN_SEQ} tokens made "
+        f"in {data_s:.1f} s")
+
+    def run(fn, params, state, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, m = fn(params, state, batch)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, {k: float(v) for k, v in m.items()}
+
+    def first_moments(fn, batch):
+        """One step of ``fn`` from the seeded state: (seconds, metrics, the
+        first moments after it)."""
+        params, state = train_state(cfg, opt_cfg, seed)
+        dt, m = run(fn, params, state, batch)
+        return dt, m, state["m"]
+
+    def grad_dist(a, b) -> float:
+        """||a - b|| / ||b|| over every leaf, in float32."""
+        num = den = 0.0
+        for (_, x), (_, y) in zip(named_leaves(a), named_leaves(b)):
+            num += float((x.float() - y.float()).square().sum())
+            den += float(y.float().square().sum())
+        return math.sqrt(num / den)
+
+    # the warm-up step, the same step microbatched from the same state, and
+    # the first half of the batch alone
+    warm_s, warm, warm_m = first_moments(step, batches[0])
+    micro_s, micro, micro_m = first_moments(step2, batches[0])
+    _, half, half_m = first_moments(step, batches[0][:TRAIN_BATCH // 2])
+    torch.cuda.empty_cache()
+    micro_rel = abs(micro["loss"] - warm["loss"]) / abs(warm["loss"])
+    norm_rel = abs(micro["grad_norm"] - warm["grad_norm"]) / warm["grad_norm"]
+    grad_rel = grad_dist(micro_m, warm_m)
+    half_rel = grad_dist(half_m, warm_m)
+    del warm_m, micro_m, half_m
+    torch.cuda.empty_cache()
+    log(f"[train] warm-up step {warm_s:.3f} s: loss {warm['loss']!r} (ln V "
+        f"{ln_v:.4f}); 2 microbatches from the same state {micro_s:.3f} s: "
+        f"loss {micro['loss']!r}, rel {micro_rel:.2e} (tolerance "
+        f"{MICRO_RTOL}); grad_norm {micro['grad_norm']!r} vs "
+        f"{warm['grad_norm']!r}, rel {norm_rel:.2e} (tolerance "
+        f"{MICRO_NORM_RTOL}); gradient ||dm||/||m|| {grad_rel:.2e} "
+        f"(tolerance {MICRO_GRAD_RTOL}); the first half of the batch alone: "
+        f"grad_norm {half['grad_norm']!r}, ||dm||/||m|| {half_rel:.2e}")
+
+    # the timed steps, from the same initial state again
+    params, state = train_state(cfg, opt_cfg, seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    steps = []
+    for b in batches[:TRAIN_STEPS]:
+        dt, m = run(step, params, state, b)
+        steps.append(dict(seconds=dt, tok_s=n_tok / dt, **m))
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    for i, s in enumerate(steps):
+        log(f"[train] step {i + 1}: {s['seconds']:.3f} s ({s['tok_s']:.0f} "
+            f"tok/s), loss {s['loss']!r}, grad_norm {s['grad_norm']!r}, lr "
+            f"{s['lr']!r}")
+    step_s = float(np.median([s["seconds"] for s in steps]))
+    log(f"[train] median {step_s:.3f} s a step, {n_tok / step_s:.0f} tok/s; "
+        f"peak device memory {peak / 2**30:.2f} GiB; launches {launches}; "
+        f"first timed loss equal to the warm-up's: "
+        f"{steps[0]['loss'] == warm['loss']}")
+    values = [v for s in [warm, micro, half] + steps
+              for k, v in s.items() if k in ("loss", "grad_norm", "lr")]
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"16b: non-finite metrics {steps}")
+    if not abs(steps[0]["loss"] - ln_v) <= 0.25 * ln_v:
+        raise AssertionError(f"16b: first loss {steps[0]['loss']} vs ln V "
+                             f"{ln_v}")
+    if not micro_rel <= MICRO_RTOL:
+        raise AssertionError(f"16b: microbatched loss {micro['loss']} vs "
+                             f"{warm['loss']}")
+    if not (norm_rel <= MICRO_NORM_RTOL and grad_rel <= MICRO_GRAD_RTOL):
+        raise AssertionError(f"16b: microbatched grad_norm rel {norm_rel}, "
+                             f"gradient rel {grad_rel}")
+    if launches != NO_LAUNCHES:
+        raise AssertionError(f"16b: the training path launched {launches}")
+
+    # the kernel route under grad raises (a short batch at full width)
+    pallas_cfg = dataclasses.replace(cfg, use_pallas_attention=True)
+    try:
+        tr.lm_loss(params, batches[0][:1, :128], pallas_cfg)
+    except RuntimeError as err:
+        log(f"[train] use_pallas_attention=True under grad raises: {err}")
+    else:
+        raise AssertionError("16b: use_pallas_attention=True under grad did "
+                             "not raise")
+    del params, state, batches
+    torch.cuda.empty_cache()
+    return dict(config=dataclasses.asdict(cfg) | {"dtype": str(cfg.dtype)},
+                batch=TRAIN_BATCH, seq=TRAIN_SEQ, data_s=data_s,
+                warmup=dict(seconds=warm_s, **warm),
+                microbatched=dict(seconds=micro_s, rel=micro_rel,
+                                  grad_norm_rel=norm_rel, grad_rel=grad_rel,
+                                  **micro),
+                half_batch=dict(grad_rel=half_rel, **half),
+                steps=steps, step_s=step_s, tok_s=n_tok / step_s,
+                peak_bytes=peak, launches=launches)
+
+
+def same_bits(a, b) -> bool:
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return bool(torch.equal(a, b))
+
+
+def checkpoint_phase(seed: int, out_dir: Path):
+    """Phase 16c: ``TrainController`` at full width and CKPT_LAYERS layers.
+    Run A takes 4 steps checkpointed every 2; run B takes 2, then a fresh
+    controller resumes from B's checkpoint and takes 2 more.  Every leaf
+    B restored is bit-equal to B's state at the save; B's losses at steps
+    3–4 equal A's within RESUME_RTOL.  A sync save, an async save and a
+    restore of A's final state timed.  The directories are deleted."""
+    import os
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import lm as lm_configs
+    from repro_torch.data.lm import TokenStream
+    from repro_torch.models import transformer as tr
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train.fault import TrainController
+    from repro_torch.train.optimizer import AdamWConfig, named_leaves
+    from repro_torch.train.train_step import build_train_step
+
+    cfg = dataclasses.replace(lm_configs.qwen2_1_5b(), n_layers=CKPT_LAYERS)
+    opt_cfg = AdamWConfig()
+    stream = TokenStream(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=seed + 1)
+    batches = [torch.from_numpy(next(stream)).to("cuda") for _ in range(4)]
+    step = build_train_step(lambda p, b: tr.lm_loss(p, b, cfg), opt_cfg)
+
+    def step_fn(state, batch):
+        p, o = state
+        p, o, m = step(p, o, batch)
+        return (p, o), m
+
+    root = out_dir / "train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    dirs = {name: str(root / name) for name in ("A", "B", "timed")}
+
+    def controller(d):
+        return TrainController(step_fn, d, ckpt_every=2,
+                               install_signal_handler=False)
+
+    def losses(ctl):
+        return {r["step"]: r["loss"] for r in ctl.journal.read()
+                if "loss" in r}
+
+    t = time.perf_counter()
+    ctl_a = controller(dirs["A"])
+    start, state_a = ctl_a.resume_or_init(
+        lambda: train_state(cfg, opt_cfg, seed))
+    end_a, state_a, stop_a = ctl_a.run(state_a, iter(batches), start, 4)
+    a_s = time.perf_counter() - t
+    t = time.perf_counter()
+    ctl_b = controller(dirs["B"])
+    start, state_b = ctl_b.resume_or_init(
+        lambda: train_state(cfg, opt_cfg, seed))
+    mid_b, state_b, stop_b1 = ctl_b.run(state_b, iter(batches[:2]), start, 2)
+    ctl_b2 = controller(dirs["B"])
+    t_r = time.perf_counter()
+    resumed, state_r = ctl_b2.resume_or_init(lambda: None)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t_r
+    mine = dict(named_leaves(state_b))
+    restored = dict(named_leaves(state_r))
+    bit_equal = sorted(mine) == sorted(restored) and all(
+        same_bits(mine[k], restored[k]) for k in mine)
+    del state_b, mine
+    end_b, state_r, stop_b2 = ctl_b2.run(state_r, iter(batches[2:]),
+                                         resumed, 2)
+    b_s = time.perf_counter() - t
+    la, lb = losses(ctl_a), losses(ctl_b) | losses(ctl_b2)
+    rels = {s: abs(lb[s] - la[s]) / abs(la[s]) for s in (2, 3)}
+    journal = ctl_b2.journal.read()
+    log(f"[train] 16c {cfg.name} at {cfg.n_layers} layers: run A {stop_a} at "
+        f"step {end_a} in {a_s:.1f} s, losses {[la[s] for s in sorted(la)]}; "
+        f"run B {stop_b1} at {mid_b}, resumed at {resumed} "
+        f"({resume_s:.2f} s), {stop_b2} at {end_b} in {b_s:.1f} s, losses "
+        f"{[lb[s] for s in sorted(lb)]}; steps 3-4 rel {rels} (tolerance "
+        f"{RESUME_RTOL}), bit-equal {[lb[s] == la[s] for s in (2, 3)]}; "
+        f"restored leaves bit-equal to the saved state: {bit_equal}")
+    if not (stop_a == stop_b1 == stop_b2 == "completed" and end_a == 4
+            and mid_b == 2 and resumed == 2 and end_b == 4):
+        raise AssertionError(f"16c: runs {stop_a} {stop_b1} {stop_b2}")
+    if {"event": "resumed", "step": 2} not in journal:
+        raise AssertionError(f"16c: journal {journal}")
+    if not bit_equal:
+        raise AssertionError("16c: a restored leaf differs from the save")
+    if not max(rels.values()) <= RESUME_RTOL:
+        raise AssertionError(f"16c: resumed losses {lb} vs {la}")
+    del state_r
+
+    # A's final state: a sync save and an async save (the restore timed is
+    # B's resume: latest step, read, to the card)
+    timed = dirs["timed"]
+    t = time.perf_counter()
+    path = ck.save(timed, 100, state_a)
+    sync_s = time.perf_counter() - t
+    ckpt_bytes = os.path.getsize(path)
+    saver = ck.AsyncCheckpointer(timed)
+    t = time.perf_counter()
+    saver.save(101, state_a)
+    async_return_s = time.perf_counter() - t
+    saver.wait()
+    async_s = time.perf_counter() - t
+    n_params = sum(t.numel() for k, t in named_leaves(state_a)
+                   if k.startswith("0/"))
+    log(f"[train] checkpoint of {n_params:,} parameters and their moments: "
+        f"{ckpt_bytes / 1e9:.3f} GB; sync save {sync_s:.2f} s, async save "
+        f"returns in {async_return_s:.2f} s (the host copy) and is written "
+        f"in {async_s:.2f} s; restore to the card (B's resume) "
+        f"{resume_s:.2f} s")
+    # where a step's time goes, at this depth (a trace of all 28 layers
+    # holds ~89,000 launches and takes minutes to read)
+    prof = profile_call(lambda: step_fn(state_a, batches[0]),
+                        f"one train step of {cfg.name} at {cfg.n_layers} "
+                        f"layers, {TRAIN_BATCH * TRAIN_SEQ} tokens")
+    del state_a
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.n_layers, params=n_params, ckpt_bytes=ckpt_bytes,
+                sync_save_s=sync_s, async_return_s=async_return_s,
+                async_save_s=async_s, restore_s=resume_s,
+                run_a_s=a_s, run_b_s=b_s,
+                losses_a=[la[s] for s in sorted(la)],
+                losses_b=[lb[s] for s in sorted(lb)], resume_rel=rels,
+                resume_bit_equal=[lb[s] == la[s] for s in (2, 3)],
+                restored_bit_equal=bit_equal, profile=prof)
+
+
+def train_cli_phase(out_dir: Path):
+    """Phase 16d: ``launch.train.main`` on the card, reduced qwen2-1.5b, 6
+    steps checkpointed every 3, then the same with ``--steps 9``: the
+    journal shows ``resumed`` at step 6 and both runs end."""
+    import contextlib
+    import io
+    import shutil
+
+    from repro_torch.launch import train as launch_train
+
+    d = out_dir / "train_cli"
+    shutil.rmtree(d, ignore_errors=True)
+    base = ["--arch", "qwen2-1.5b", "--reduced", "--ckpt-every", "3",
+            "--log-every", "3", "--ckpt-dir", str(d), "--device", "cuda"]
+    outs, ctls = [], []
+    t = time.perf_counter()
+    for n in (6, 9):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            ctls.append(launch_train.main(base + ["--steps", str(n)]))
+        outs.append(buf.getvalue())
+    cli_s = time.perf_counter() - t
+    journal = ctls[1].journal.read()
+    steps = [r["step"] for r in journal if "loss" in r]
+    log(f"[train] 16d launch.train on the card in {cli_s:.1f} s: "
+        + " | ".join(o.strip().splitlines()[-1] for o in outs)
+        + f"; journal steps {steps}")
+    if {"event": "resumed", "step": 6} not in journal or \
+            steps != list(range(9)):
+        raise AssertionError(f"16d: journal {journal}")
+    shutil.rmtree(d, ignore_errors=True)
+    return dict(seconds=cli_s, stdout=outs, journal_steps=steps)
+
+
+def train_phase(seed: int, out_dir: Path):
+    """Phase 16: LM training (16a-16d), every kernel's launches 0."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    t = time.perf_counter()
+    ops.reset_launches()
+    out = {"flash_backward": flash_backward_phase(seed)}
+    if dict(ops.launches) != NO_LAUNCHES:
+        raise AssertionError(f"16a launched {dict(ops.launches)}")
+    out["steps"] = train_steps_phase(seed)
+    out["checkpoint"] = checkpoint_phase(seed, out_dir)
+    out["cli"] = train_cli_phase(out_dir)
+    out["launches"] = out["steps"]["launches"]
+    if dict(ops.launches) != NO_LAUNCHES:
+        raise AssertionError(f"phase 16 launched {dict(ops.launches)}")
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t
+    log(f"[train] phase 16 in {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--side", type=int, default=96)
@@ -3807,6 +4313,9 @@ def main(argv=None) -> int:
     report["phase15_s"] = time.perf_counter() - t
     log(f"[phase 15] {report['phase15_s']:.1f} s")
 
+    # -- 16. LM training ----------------------------------------------------------
+    report["train"] = train_phase(args.seed, out_dir)
+
     for route in SHARD_ROUTES:
         report["sharded_" + route] = {
             "launches": report["sharded"]["world_one"][route]["measured"][
@@ -3842,7 +4351,8 @@ def main(argv=None) -> int:
                         for r in SHARD_ROUTES},
                      "sharded_serve": report["sharded_serve"]["launches"],
                      "sharded_serve4": report["sharded_serve4"]["launches"],
-                     "perf": report["perf"]["launches"]}
+                     "perf": report["perf"]["launches"],
+                     "train": report["train"]["launches"]}
     for name in KERNELS:
         if path_launches[LAUNCH_PATH[name]][name] == 0:
             raise AssertionError(f"{name} was not launched on its path")

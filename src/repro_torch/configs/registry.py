@@ -2,9 +2,12 @@
 
 ``ARCHS[arch_id]`` → ArchEntry(family, make_config, make_reduced, cells,
 shapes), as in the JAX package's ``repro/configs/registry.py``; ``--arch
-<id>`` in the port's launchers resolves through this table.  The GNN, recsys
-and solver entries of the JAX registry are not ported yet: ``get`` names
-them and the ROADMAP item by its title.
+<id>`` in the port's launchers (``launch.lm_serve``, ``launch.train``)
+resolves through this table, and the five thin modules
+(``configs/qwen2_1_5b.py`` …) re-export its LM entries.  Not ported yet:
+the GNN and recsys entries (ROADMAP queue 1, item 7, "GNN and recsys") and
+the solver's ``pirmcut`` entry (item 7, "Dry runs"); ``get`` names the
+bullet.
 """
 from __future__ import annotations
 
@@ -35,13 +38,20 @@ for _id, _fn in lm.LM_ARCHS.items():
 # the JAX registry's other families, still to port
 NOT_PORTED = {"gcn-cora": "gnn", "schnet": "gnn", "dimenet": "gnn",
               "meshgraphnet": "gnn", "din": "recsys", "pirmcut": "solver"}
+# the bullet of ROADMAP.md queue 1, item 7 that ports each family
+PORTED_BY = {"gnn": "GNN and recsys", "recsys": "GNN and recsys",
+             "solver": "Dry runs"}
+
+
+def not_ported_message(arch_id: str) -> str:
+    family = NOT_PORTED[arch_id]
+    return (f"arch {arch_id!r} ({family} family) is not ported yet: "
+            f"ROADMAP.md queue 1, item 7, \"{PORTED_BY[family]}\"")
 
 
 def get(arch_id: str) -> ArchEntry:
     if arch_id in NOT_PORTED:
-        raise KeyError(f"arch {arch_id!r} ({NOT_PORTED[arch_id]} family) is "
-                       f"not ported yet: ROADMAP.md queue 1, \"The rest of "
-                       f"the model stack\"")
+        raise KeyError(not_ported_message(arch_id))
     if arch_id not in ARCHS:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCHS)}")
     return ARCHS[arch_id]

@@ -29,13 +29,13 @@ from ..data.lm import token_batch
 from ..models import transformer as tr
 
 
-def serve(cfg: tr.LMConfig, params: tr.Transformer, prompts, gen: int,
-          device="cuda"):
+def serve(cfg: tr.LMConfig, params, prompts, gen: int, device="cuda"):
     """Prefill ``prompts`` [B, P] (cache capacity reserved for ``gen``
     tokens), then greedy-decode: the first token from the prefill's logits,
-    the other gen − 1 from a host loop of ``decode_step``.  Returns (tokens
-    int32 [B, gen] as numpy, {"prefill_s", "decode_s"}), each time ending
-    in a device synchronization."""
+    the other gen − 1 from a host loop of ``decode_step``.  ``params``: a
+    ``Transformer``'s ``tree()``.  Returns (tokens int32 [B, gen] as numpy,
+    {"prefill_s", "decode_s"}), each time ending in a device
+    synchronization."""
     dev = torch.device(device)
 
     def sync():
@@ -83,7 +83,7 @@ def main(argv=None):
           if args.reduced else f"model {cfg.name}")
 
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
-    params = tr.init_params(cfg, gen, device=args.device)
+    params = tr.init_params(cfg, gen, device=args.device).tree()
     B, P, N = args.batch, args.prompt_len, args.gen
     prompts = token_batch(cfg.vocab, B, P, seed=args.seed)
     out, tm = serve(cfg, params, prompts, N, args.device)

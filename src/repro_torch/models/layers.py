@@ -1,13 +1,17 @@
-"""Shared neural-net layers of the LM stack, inference half (PyTorch).
+"""Shared neural-net layers of the LM stack (PyTorch).
 
 The port of ``repro/models/layers.py``: plain functions over tensors, the
 same names, signatures and layouts (q [B, S, H, D], k and v [B, S, KV, D]).
 The attention forward is blockwise with an online softmax, so a long
 prefill never holds an [Sq, Sk] score matrix; windowed (local) layers take
-a banded kv slice per q chunk.  ``flash_attention(use_pallas=True)`` routes
-full-attention forwards through the hand-written CUDA kernel
-(``kernels/csrc/flash_fwd.cu``).  The JAX package's ``lax.map`` and
-``lax.scan`` over chunks are Python loops here.
+a banded kv slice per q chunk.  The backward is written by hand
+(``FlashAttention``, the counterpart of the reference's custom VJP): it
+saves q, k, v, out and lse and recomputes each tile's probabilities, so
+training holds no O(S²) residuals.  ``flash_attention(use_pallas=True)``
+routes full-attention forwards through the hand-written CUDA kernel
+(``kernels/csrc/flash_fwd.cu``), which has no backward: for inference
+only, as in the reference.  The JAX package's ``lax.map`` and ``lax.scan``
+over chunks are Python loops here.
 
 The MoE layers (``moe_layer``, ``moe_layer_grouped``, ``moe_aux_loss``)
 keep the reference's capacity arithmetic and order of work.  Their routes
@@ -15,8 +19,8 @@ come from ``route_top_k``, which breaks ties between equal gates toward the
 lower expert index, as ``lax.top_k`` does (``torch.topk`` leaves the order
 of equal values undefined, and bf16 router logits tie often).
 
-Not ported yet (ROADMAP queue 1, "The rest of the model stack"): the flash
-backward and its custom VJP, ``embedding_bag*`` and ``mlp``.
+Not ported yet (ROADMAP queue 1, item 7, "GNN and recsys"):
+``embedding_bag*`` and ``mlp``.
 """
 from __future__ import annotations
 
@@ -117,6 +121,86 @@ def _flash_fwd_impl(q, k, v, *, causal, window, q_offset, q_chunk, k_chunk,
     return out, lse
 
 
+def _flash_bwd_impl(q, k, v, out, lse, do, *, causal, window, q_offset,
+                    q_chunk, k_chunk, scale):
+    """Tile-recomputing backward: (dq, dk, dv) in the inputs' dtypes.
+    Memory: float32 accumulators of O(S·D) and one tile at a time."""
+    B, Sq, KV, G, D = q.shape
+    Sk = k.shape[1]
+    nq = Sq // q_chunk
+    qr = q.reshape(B, nq, q_chunk, KV, G, D)
+    dor = do.reshape(B, nq, q_chunk, KV, G, D)
+    lser = lse.reshape(B, KV, G, nq, q_chunk)
+    delta = (do.float() * out.float()).sum(dim=-1)         # [B,Sq,KV,G]
+    deltar = delta.reshape(B, nq, q_chunk, KV, G)
+    banded = window is not None and window + q_chunk < Sk
+    w_len = min(window + q_chunk, Sk) if window is not None else Sk
+    dev = q.device
+    dk = torch.zeros((B, Sk, KV, D), dtype=torch.float32, device=dev)
+    dv = torch.zeros((B, Sk, KV, D), dtype=torch.float32, device=dev)
+    dqs = []
+    for i in range(nq):
+        qc = qr[:, i]                                      # [B,Qc,KV,G,D]
+        qcf = qc.float()
+        doc = dor[:, i].permute(0, 2, 3, 1, 4).float()     # [B,KV,G,Qc,D]
+        lsec = lser[:, :, :, i]                            # [B,KV,G,Qc]
+        dlt = deltar[:, i].permute(0, 2, 3, 1)             # [B,KV,G,Qc]
+        q_start = q_offset + i * q_chunk
+        q_pos = q_start + torch.arange(q_chunk, device=dev)
+
+        def tile(kc, vc, k_pos):
+            logits = _tile_logits(qc, kc, scale, q_pos, k_pos, causal, window)
+            p = torch.exp(logits - lsec[..., None])        # [B,KV,G,Qc,Kc]
+            dvc = torch.einsum("bkgqs,bkgqd->bskd", p, doc)
+            dp = torch.einsum("bkgqd,bskd->bkgqs", doc, vc.float())
+            ds = p * (dp - dlt[..., None]) * scale
+            dkc = torch.einsum("bkgqs,bqkgd->bskd", ds, qcf)
+            dqc = torch.einsum("bkgqs,bskd->bqkgd", ds, kc.float())
+            return dqc, dkc, dvc
+
+        if banded:
+            start = min(max(q_start + q_chunk - w_len, 0), Sk - w_len)
+            ks = slice(start, start + w_len)
+            dqc, dkc, dvc = tile(k[:, ks], v[:, ks],
+                                 start + torch.arange(w_len, device=dev))
+            dk[:, ks] += dkc
+            dv[:, ks] += dvc
+            dqs.append(dqc)
+            continue
+        dq_acc = torch.zeros((B, q_chunk, KV, G, D), dtype=torch.float32,
+                             device=dev)
+        for j in range(Sk // k_chunk):
+            ks = slice(j * k_chunk, (j + 1) * k_chunk)
+            dqc, dkc, dvc = tile(k[:, ks], v[:, ks],
+                                 j * k_chunk + torch.arange(k_chunk, device=dev))
+            dk[:, ks] += dkc
+            dv[:, ks] += dvc
+            dq_acc = dq_acc + dqc
+        dqs.append(dq_acc)
+    dq = torch.stack(dqs, dim=1).reshape(B, Sq, KV, G, D)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """The blockwise attention with the tile-recomputing backward (the
+    reference's ``_make_flash`` custom VJP).  q [B, Sq, KV, G, D], k and v
+    [B, Sk, KV, D] → out [B, Sq, KV, G, D] float32; ``kw`` holds the static
+    arguments of ``_flash_fwd_impl``.  Saves q, k, v, out and lse only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw):
+        out, lse = _flash_fwd_impl(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd_impl(q, k, v, out, lse, do, **ctx.kw)
+        return dq, dk, dv, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     q_offset: int = 0, q_chunk: int = 512,
@@ -125,12 +209,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Flash attention with GQA, causal masking and sliding windows.
 
     q: [B, Sq, H, D]; k, v: [B, Sk, KV, D] with H = KV·G.  Windowed layers
-    take a banded kv slice per q chunk (compute O(S·window)).
+    take a banded kv slice per q chunk (compute O(S·window)).  The call
+    goes through ``FlashAttention``, whose backward recomputes the tiles
+    (no O(S²) residuals); without grad it is the plain forward.
 
     ``use_pallas=True`` routes the forward of full-attention layers
     (``window is None``, ``q_offset == 0``) through the hand-written CUDA
     kernel (``flash_attention_kernel``); windowed layers stay on the banded
-    path.  The name is the JAX package's, which routes to its Pallas kernel."""
+    path.  The kernel has no backward, so ``use_pallas=True`` raises where
+    an input requires grad.  The name is the JAX package's, which routes to
+    its Pallas kernel."""
     B, Sq, H, D = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -140,11 +228,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if Sq % q_chunk or k.shape[1] % k_chunk:
         raise ValueError(f"chunks must divide the sequences: Sq {Sq}, q_chunk "
                          f"{q_chunk}, Sk {k.shape[1]}, k_chunk {k_chunk}")
+    if use_pallas and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("use_pallas=True: the attention kernel has no "
+                           "backward (inference only); train with "
+                           "use_pallas_attention=False")
     if use_pallas and window is None and q_offset == 0:
         return flash_attention_kernel(q, k, v, causal=causal, scale=scale)
-    out, _ = _flash_fwd_impl(q.reshape(B, Sq, KV, G, D), k, v, causal=causal,
-                             window=window, q_offset=q_offset, q_chunk=q_chunk,
-                             k_chunk=k_chunk, scale=float(scale))
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              q_chunk=q_chunk, k_chunk=k_chunk, scale=float(scale))
+    out = FlashAttention.apply(q.reshape(B, Sq, KV, G, D), k, v, kw)
     return out.reshape(B, Sq, H, D).to(q.dtype)
 
 

@@ -1,13 +1,17 @@
-"""LM-family transformer, inference half: dense and MoE GQA layers with
-RoPE and sliding-window patterns, prefill and KV-cache decode (PyTorch).
+"""LM-family transformer: dense and MoE GQA layers with RoPE and
+sliding-window patterns, the chunked LM loss, prefill and KV-cache decode
+(PyTorch).
 
 The port of ``repro/models/transformer.py`` for one device.  ``LMConfig``
 and ``MoECfg`` keep the JAX package's fields and defaults, so one kwargs dict
 builds both sides of a parity test (``dtype`` may be given as a torch,
 numpy or JAX dtype, or its name; it is stored as a torch dtype).
 ``use_pallas_attention`` routes the prefill attention of full-attention
-layers through the hand-written CUDA kernel.  ``remat`` and ``seq_parallel``
-are kept as fields and have no effect on one device.  MoE layers dispatch
+layers through the hand-written CUDA kernel (inference only: under grad it
+raises).  ``remat`` wraps each group of ``period`` layers of a forward under
+grad in ``torch.utils.checkpoint``, as the reference checkpoints its scan
+body; ``seq_parallel`` is kept as a field and has no effect on one device.
+MoE layers dispatch
 through ``layers.moe_layer`` (one device has no token groups, so the
 grouped dispatch is not taken, as in the reference without a mesh), add
 the shared expert where the config has one, and ``forward`` returns the
@@ -17,12 +21,18 @@ The parameters live in a ``Transformer`` module under the JAX pytree's
 names, stacked along a leading layer axis (``embed``, ``final_norm``,
 ``layers.wq`` as (L, D, H·Dh), ``layers.w1`` as (L, E, D, F) for MoE, ...),
 so carrying the JAX package's weights over (``params_from_numpy``) is a
-name-for-name copy.  The layers run in a Python loop; local ('L') layers
+name-for-name copy; ``Transformer.tree()`` gives them as the reference's
+nested dict, the one form that ``forward``, ``lm_loss``, ``prefill`` and
+``decode_step`` take and that the trainer, optimizer and checkpoints hold.
+The layers run in a Python loop; a forward takes each layer's parameters
+by one ``unbind`` of the stacks (whose backward is one ``stack``, not a
+full-size zero gradient per layer as indexing would give); local ('L') layers
 keep window-sized ring caches aligned to decode's ``pos % w``, global layers
 full-length caches, and decode updates the caches in place.
 
-Not ported yet (ROADMAP queue 1, "The rest of the model stack"): ``lm_loss``
-and training, sharding (``rules``), ``abstract_params``/``param_shardings``.
+Not ported yet (ROADMAP queue 1, item 7, "Sharding"): the sharding rules
+(``rules``, ``_residual_constraint``), the grouped MoE dispatch over a
+``tokens`` axis, ``abstract_params``/``param_shardings``.
 """
 from __future__ import annotations
 
@@ -33,6 +43,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 
@@ -181,9 +192,11 @@ class Transformer(nn.Module):
         self.layers = nn.ParameterDict(
             {name: empty(spec) for name, spec in shapes["layers"].items()})
 
-    def layer(self, i: int) -> Dict[str, torch.Tensor]:
-        """Layer ``i``'s parameters (views into the stacks)."""
-        return {name: p[i] for name, p in self.layers.items()}
+    def tree(self) -> Dict[str, Any]:
+        """The parameters as the reference's pytree: ``{"embed",
+        "final_norm", "layers": {name: stack}}`` of these tensors."""
+        return {"embed": self.embed, "final_norm": self.final_norm,
+                "layers": dict(self.layers)}
 
 
 # elements of one float32 draw of init_params (1 GiB)
@@ -311,21 +324,72 @@ def _layer(x, lp, cfg, kind, positions, cache=None, cache_len=None):
     return x, kv, aux
 
 
-def _embed(params: Transformer, tokens: torch.Tensor, cfg: LMConfig):
-    return params.embed[tokens.to(params.embed.device).long()].to(cfg.dtype)
+def _embed(embed: torch.Tensor, tokens: torch.Tensor, cfg: LMConfig):
+    return embed[tokens.to(embed.device).long()].to(cfg.dtype)
 
 
-def forward(params: Transformer, tokens: torch.Tensor, cfg: LMConfig):
+def forward(params, tokens: torch.Tensor, cfg: LMConfig):
     """Token ids [B, S] → (final hidden states [B, S, D], the layers' aux
-    loss sum, float32)."""
+    loss sum, float32).  ``params``: a ``Transformer``'s ``tree()``.
+
+    Under grad with ``cfg.remat``, each group of ``period`` layers runs
+    under ``torch.utils.checkpoint`` (its activations recomputed in the
+    backward) and the ``n_layers % period`` layers left over run
+    unwrapped, as in the reference."""
     B, S = tokens.shape
-    x = _embed(params, tokens, cfg)
+    x = _embed(params["embed"], tokens, cfg)
     positions = torch.arange(S, device=x.device).expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, kind in enumerate(cfg.layer_kinds()):
-        x, _, a = _layer(x, params.layer(i), cfg, kind, positions)
-        aux = aux + a
-    return L.rms_norm(x, params.final_norm, cfg.norm_eps), aux
+    kinds = cfg.layer_kinds()
+    per_layer = {name: t.unbind(0) for name, t in params["layers"].items()}
+
+    def run(x, aux, first, last):
+        for i in range(first, last):
+            lp = {name: ts[i] for name, ts in per_layer.items()}
+            x, _, a = _layer(x, lp, cfg, kinds[i], positions)
+            aux = aux + a
+        return x, aux
+
+    per = cfg.period
+    n_grouped = cfg.n_layers // per * per
+    remat = cfg.remat and torch.is_grad_enabled()
+    for first in range(0, n_grouped, per):
+        if remat:
+            x, aux = checkpoint(run, x, aux, first, first + per,
+                                use_reentrant=False)
+        else:
+            x, aux = run(x, aux, first, first + per)
+    x, aux = run(x, aux, n_grouped, cfg.n_layers)
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+
+def lm_loss(params, tokens: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+    """Next-token cross entropy (float32 scalar), chunked over the sequence
+    (``loss_chunk`` positions a chunk: no [B, S, V] logits at once) with the
+    tied head ``embed``, ``logsumexp`` in float32, divided by B·(S − 1);
+    MoE configs add ``aux_loss_weight · aux / n_layers``."""
+    x, aux = forward(params, tokens, cfg)                # [B, S, D]
+    emb = params["embed"]
+    tokens = tokens.to(x.device).long()
+    B, S, D = x.shape
+    inputs = x[:, :-1]
+    labels = tokens[:, 1:]
+    T = S - 1
+    ch = min(cfg.loss_chunk, T)
+
+    def chunk_loss(a: int, b: int):
+        logits = (inputs[:, a:b] @ emb.T).float()        # [B, ch, V]
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels[:, a:b, None])[..., 0]
+        return (lse - ll).sum()
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for a in range(0, T, ch):
+        total = total + chunk_loss(a, min(a + ch, T))
+    loss = total / (B * T)
+    if cfg.moe and cfg.moe.aux_loss_weight:
+        loss = loss + cfg.moe.aux_loss_weight * aux / cfg.n_layers
+    return loss
 
 
 # ---------------------------------------------------------------------------
@@ -369,34 +433,40 @@ def _cache_layout(cfg: LMConfig):
     return layout
 
 
-def decode_step(params: Transformer, cache, tokens: torch.Tensor,
-                cache_len: int, cfg: LMConfig):
+def layer_params(params, i: int) -> Dict[str, torch.Tensor]:
+    """Layer ``i``'s parameters of a ``tree()`` (views into the stacks)."""
+    return {name: t[i] for name, t in params["layers"].items()}
+
+
+def decode_step(params, cache, tokens: torch.Tensor, cache_len: int,
+                cfg: LMConfig):
     """One serving step: tokens [B] at position ``cache_len`` → (logits
-    [B, V] float32, cache).  The cache is updated in place and returned."""
+    [B, V] float32, cache).  ``params``: a ``Transformer``'s ``tree()``.
+    The cache is updated in place and returned."""
     cache_len = int(cache_len)
     B = tokens.shape[0]
-    x = _embed(params, tokens, cfg)[:, None, :]
+    x = _embed(params["embed"], tokens, cfg)[:, None, :]
     positions = torch.full((B, 1), cache_len, dtype=torch.long, device=x.device)
     for i, (kind, (kname, idx)) in enumerate(zip(cfg.layer_kinds(),
                                                  _cache_layout(cfg))):
         kv = (cache[f"{kname}_k"][idx], cache[f"{kname}_v"][idx])
-        x, _, _ = _layer(x, params.layer(i), cfg, kind, positions, cache=kv,
-                         cache_len=cache_len)
-    x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
-    return (x[:, 0] @ params.embed.T).float(), cache
+        x, _, _ = _layer(x, layer_params(params, i), cfg, kind, positions,
+                         cache=kv, cache_len=cache_len)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return (x[:, 0] @ params["embed"].T).float(), cache
 
 
-def prefill(params: Transformer, tokens: torch.Tensor, cfg: LMConfig,
+def prefill(params, tokens: torch.Tensor, cfg: LMConfig,
             pad_cache_to: Optional[int] = None):
     """Prefill: tokens [B, S] → (last-position logits [B, V] float32, filled
-    cache).
+    cache).  ``params``: a ``Transformer``'s ``tree()``.
 
     Global layers cache all S keys; local layers keep the trailing window
     as a ring buffer aligned with decode's ``pos % w`` indexing (position p
     lives at slot p % w).  ``pad_cache_to`` reserves extra global-cache
     capacity so decode can continue for (pad_cache_to − S) tokens."""
     B, S = tokens.shape
-    x = _embed(params, tokens, cfg)
+    x = _embed(params["embed"], tokens, cfg)
     dev = x.device
     positions = torch.arange(S, device=dev).expand(B, S)
     cap = pad_cache_to or S
@@ -412,7 +482,8 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: LMConfig,
                     (n, B, length, cfg.n_kv_heads, cfg.d_head),
                     dtype=cfg.dtype, device=dev)
     for i, (kind, (kname, idx)) in enumerate(zip(cfg.layer_kinds(), layout)):
-        x, (k, v), _ = _layer(x, params.layer(i), cfg, kind, positions)
+        x, (k, v), _ = _layer(x, layer_params(params, i), cfg, kind,
+                              positions)
         for part, t in (("k", k), ("v", v)):
             dst = cache[f"{kname}_{part}"][idx]
             if kname == "global":
@@ -422,5 +493,5 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: LMConfig,
                 ring = torch.zeros_like(dst)
                 ring[:, :m] = t[:, S - m:]
                 dst.copy_(torch.roll(ring, (S - m) % w, dims=1))
-    x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
-    return (x[:, -1] @ params.embed.T).float(), cache
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return (x[:, -1] @ params["embed"].T).float(), cache

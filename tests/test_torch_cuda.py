@@ -819,3 +819,81 @@ def test_coo_scatters_and_sweep_are_deterministic_on_the_card(cuda):
     one = rd.sweep_cut_torch(src, dst, g.c, g.c_s, g.c_t, v[0], g.coo)
     two = rd.sweep_cut_torch(src, dst, g.c, g.c_s, g.c_t, v[0], g.coo)
     assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
+
+
+@pytest.fixture(scope="module")
+def card():
+    """The card alone (the flash backward is plain torch: no kernel to
+    build)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: torch.cuda.is_available() is False")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+# (B, S, H, KV, D, window, q_chunk, k_chunk): causal full attention over
+# two kv chunks, and a windowed layer on the banded path
+@pytest.mark.parametrize("shape", [(2, 1024, 12, 2, 128, None, 256, 512),
+                                   (1, 1024, 8, 4, 128, 256, 256, 512)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_backward_matches_plain_autograd(card, shape, dtype):
+    """``FlashAttention``'s recomputing backward against autograd through
+    the plain blockwise forward (``_flash_fwd_impl``, no custom backward),
+    each gradient within its max |·| times 1e-2 in bf16 (one rounding of
+    each side's float32 gradient to bf16, u = 2^-8) and 1e-4 in float32
+    (float32 sums in other orders)."""
+    from repro_torch.models import layers as nn
+
+    B, S, H, KV, D, window, qc, kc = shape
+    td = getattr(torch, dtype)
+    gen = torch.Generator(device=card).manual_seed(S + H)
+    q, k, v = (torch.randn((B, S, n, D), generator=gen, device=card).to(td)
+               for n in (H, KV, KV))
+    w = torch.randn((B, S, H, D), generator=gen, device=card)
+    kw = dict(causal=True, window=window, q_offset=0, q_chunk=qc,
+              k_chunk=kc, scale=1.0 / D ** 0.5)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = nn.flash_attention(*leaves, **{k_: kw[k_] for k_ in (
+        "causal", "window", "q_chunk", "k_chunk")})
+    got = torch.autograd.grad((out.float() * w).sum(), leaves)
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref_out, _ = nn._flash_fwd_impl(plain[0].reshape(B, S, KV, H // KV, D),
+                                    plain[1], plain[2], **kw)
+    ref_out = ref_out.reshape(B, S, H, D).to(td)
+    want = torch.autograd.grad((ref_out.float() * w).sum(), plain)
+    tol = 1e-2 if dtype == "bfloat16" else 1e-4
+    for name, a, b in zip("qkv", got, want):
+        assert a.dtype == td
+        err = float((a.float() - b.float()).abs().max())
+        scale = float(b.float().abs().max())
+        assert err <= tol * scale, (name, err, scale)
+
+
+def test_resumed_training_state_lands_on_the_card(card, tmp_path):
+    """A state that ``init_fn`` puts on the card comes back there when a
+    fresh controller resumes it with ``resume_or_init``'s default device:
+    every leaf on the card with its dtype and bits, bf16 included."""
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train.fault import TrainController
+
+    def step_fn(state, batch):
+        return {k: v + 1 for k, v in state.items()}, {"loss": 0.0}
+
+    def init_fn():
+        return {"w": torch.arange(6.0, device=card),
+                "b": torch.full((3,), 1.5, dtype=torch.bfloat16,
+                                device=card)}
+
+    def controller():
+        return TrainController(step_fn, str(tmp_path), ckpt_every=1,
+                               install_signal_handler=False)
+
+    ctl = controller()
+    s0, state = ctl.resume_or_init(init_fn)
+    _, state, _ = ctl.run(state, iter(range(4)), s0, 2)
+    s2, back = controller().resume_or_init(init_fn)
+    assert s2 == 2
+    back = dict(ck.named_leaves(back))
+    for key, t in ck.named_leaves(state):
+        assert back[key].device == t.device and back[key].dtype == t.dtype
+        assert torch.equal(back[key], t), key

@@ -148,3 +148,24 @@ def test_card_scripts_stand_alone_and_need_a_card(script):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout and '"kernels"' not in out.stdout
+
+
+def test_port_training_modules_stand_alone():
+    """The training substrate (optimizer, train step, checkpoints, the fault
+    controller), its ``launch.train`` driver and the five thin LM config
+    modules import with ``jax`` blocked and bring in no ``repro`` module."""
+    probe = _PROBE.replace("print(len(names))", "print(' '.join(names))")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", probe], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    names = set(out.stdout.split())
+    assert names >= {"repro_torch.train", "repro_torch.train.optimizer",
+                     "repro_torch.train.train_step",
+                     "repro_torch.train.checkpoint",
+                     "repro_torch.train.fault", "repro_torch.launch.train",
+                     "repro_torch.configs.minitron_4b",
+                     "repro_torch.configs.qwen2_1_5b",
+                     "repro_torch.configs.gemma3_27b",
+                     "repro_torch.configs.llama4_maverick",
+                     "repro_torch.configs.mixtral_8x22b"}

@@ -51,7 +51,7 @@ def _both(kw):
 
 def _carry(jparams, cfg):
     return tr.params_from_numpy(jax.tree.map(np.asarray, jparams), cfg,
-                                device="cpu")
+                                device="cpu").tree()
 
 
 def _close(got, want, tol):
@@ -192,7 +192,8 @@ def test_prefill_hands_the_kernel_contiguous_model_layout(monkeypatch):
     layout the kernel reads in place; the output goes back as it came."""
     cfg = dataclasses.replace(plm.reduced_lm("qwen2-1.5b"),
                               use_pallas_attention=True)
-    params = tr.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    params = tr.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu").tree()
     seen = []
     real = ops.flash_fwd
 
@@ -300,9 +301,9 @@ def test_prefill_reduced_qwen2_bf16_matches_jax():
     assert cfg.dtype == torch.bfloat16
     jparams = jtr.init_params(jcfg, jax.random.PRNGKey(3))
     params = _carry(jparams, cfg)
-    assert params.embed.dtype == torch.bfloat16
+    assert params["embed"].dtype == torch.bfloat16
     # the carry-over is exact: bf16 → float32 → bf16
-    np.testing.assert_array_equal(params.layers["wq"].float().numpy(),
+    np.testing.assert_array_equal(params["layers"]["wq"].float().numpy(),
                                   _np(jparams["layers"]["wq"]))
     toks = _tokens(cfg.vocab, (2, 32), 4)
     want, jcache = jtr.prefill(jparams, jnp.asarray(toks), jcfg)
@@ -432,7 +433,8 @@ def test_params_init_distribution_and_carry_over():
             assert float(p.std()) * math.sqrt(fan_in) == pytest.approx(1, rel=0.2)
     # the same tree as the JAX init's, name for name
     jparams = jtr.init_params(jlm.reduced_lm("qwen2-1.5b"), jax.random.PRNGKey(1))
-    carried = _carry(jparams, cfg)
+    carried = tr.params_from_numpy(jax.tree.map(np.asarray, jparams), cfg,
+                                   device="cpu")
     for name, p in carried.named_parameters():
         node = jparams
         for part in name.split("."):
@@ -448,7 +450,8 @@ def test_params_init_distribution_and_carry_over():
                         ("llama4-maverick-400b-a17b",
                          {"router", "w1", "w3", "w2", "s1", "s3", "s2"})):
         jparams = jtr.init_params(jlm.reduced_lm(arch), jax.random.PRNGKey(2))
-        carried = _carry(jparams, plm.reduced_lm(arch))
+        carried = tr.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                       plm.reduced_lm(arch), device="cpu")
         assert names <= set(carried.layers)
         assert carried.layers["w1"].dim() == 4          # (L, E, D, F)
         for name, p in carried.named_parameters():

@@ -47,7 +47,7 @@ def _close(got, want, tol):
 
 def _carry(jparams, cfg):
     return tr.params_from_numpy(jax.tree.map(np.asarray, jparams), cfg,
-                                device="cpu")
+                                device="cpu").tree()
 
 
 def _moe_params(rng, D, F, E, scale=0.25):
@@ -299,7 +299,7 @@ def test_prefill_reduced_llama4_bf16_matches_jax():
                               dtype="bfloat16")
     jparams = jtr.init_params(jcfg, jax.random.PRNGKey(3))
     params = _carry(jparams, cfg)
-    assert params.layers["w1"].dtype == torch.bfloat16
+    assert params["layers"]["w1"].dtype == torch.bfloat16
     toks = _tokens(cfg.vocab, (2, 32), 4)
     want, _ = jtr.prefill(jparams, jnp.asarray(toks), jcfg)
     got, _ = tr.prefill(params, torch.as_tensor(toks), cfg)
