@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py [--side 96] [--n-irls 50] [--seed 0]
-                          [--frame 1024] [--ell-side 48] [--tree-side 40]
+                          [--frame 1024] [--ell-side 48] [--tree-side 24]
 
 Phases (any failure raises and exits non-zero; there is no CPU path):
 
@@ -122,7 +122,7 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
        keyed ``solve_batch`` at B = 8 bit-equal to keyless; a one-worker
        server without warm starts gives tenant requests the bits of the
        same requests without a tenant; a 30% drift stages ``full``.
-    c. Presolve on the road family at side 768 (n = 589,824) in 11b's
+    c. Presolve on the road family at side 512 (n = 262,144) in 11b's
        config, host backend: kernel size, kernelize seconds and launches
        (as the PCG trace says); the certificate exact (rel_gap 0) and the
        cut its lifted cut; the lifted cut within rel 1e-3 of the solve
@@ -138,12 +138,15 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
     d. ``launch.solve --family road --side 256 --irls 20`` (delta_two_level
        ≤ 1e-3) and ``launch.mincut_serve --warm --presolve --drift-sparsity
        0.05`` (every request completed) as subprocesses, their JSON read.
+       They run side by side with 12d's ``launch.cut_tree`` and 13c's
+       ``launch.solve --backend sharded`` (each phase checks its own), and
+       the run waits for all four before it goes on.
 
 12. Cut trees, through ``edge_reweight`` (the cut-tree default config with
     ``use_pallas``: one launch per IRLS iteration of every ``solve_batch``
     call, checked for every IRLS build and repair below).
-    a. ``build_cut_tree`` of the cut_tree CLI's ``--family grid --side 40``
-       (n = 1,600, m = 3,120) in batches of up to 64 pair solves, traced
+    a. ``build_cut_tree`` of the cut_tree CLI's ``--family grid --side 24``
+       (n = 576, m = 1,104) in batches of up to 64 pair solves, traced
        to a JSONL sink: build seconds, solves, waves, discarded
        speculation, pairs/s; the global min cut, 10,000 random pair queries
        (µs each) and 25 of them against the exact Dinic cut (rel 1e-3, the
@@ -152,11 +155,11 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
        and host work; 2 IRLS iterations of a 64-pair wave profiled;
        ``edge_reweight`` alone at B = 64 over the grid, bit for bit and
        timed as in phase 7.
-    b. At side 8 in batches of up to 8, under deterministic algorithms,
+    b. At side 6 in batches of up to 8, under deterministic algorithms,
        builds on the kernel route, the plain route and the kernel route
        again: the three trees equal (parent, weight, stored sides,
        acceptance order).
-    c. At side 10, where Dinic is cheap: the exact tree; Gomory–Hu (all
+    c. At side 8, where Dinic is cheap: the exact tree; Gomory–Hu (all
        pairs at the exact tree's, rel 1e-9); a 1% drift (σ 0.05) repaired
        exactly (rel 1e-9 of a fresh exact build, some edges reused) and by
        IRLS in tests/test_drift.py's strong config (rel 1e-6).
@@ -168,9 +171,9 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
        logged), the global min cut within rel 1e-3; the next 1,000 hit the
        cache, the drift is ``"repaired"`` (rel 1e-9 of the fresh build),
        the same weights again ``"unchanged"``; then ``launch.cut_tree
-       --side 10 --solver irls --refine --verify-pairs 25``
-       (verify_max_rel ≤ 1e-3) and ``launch.obs`` on 12a's sink as
-       subprocesses.
+       --side 8 --solver irls --refine --verify-pairs 25``
+       (verify_max_rel ≤ 1e-3; run in 11d) and ``launch.obs`` on 12a's
+       sink as subprocesses.
 
 13. The sharded solver (``distributed.solver.ShardedSolver``).
     a. A world of one over NCCL (the solver initializes it) at full width:
@@ -189,7 +192,8 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
        1e-5, two-level), launches and collectives per CG step as in 13a,
        the int8 halo under 0.4× the halo's bytes and the halo under 0.7×
        psum's, each rank's kernels held at its shard's shapes.
-    c. ``launch.solve --backend sharded`` as a subprocess (world of one).
+    c. ``launch.solve --backend sharded`` as a subprocess (world of one;
+       run in 11d).
 
 14. MoE serving at full width, phase 10's traffic (4 prompts of 4096
     tokens, 64 greedy tokens), one arch at a time on the card.
@@ -259,7 +263,7 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
        both backward times (CUDA events) and both peak memories, the
        recomputing one's below.
     b. ``build_train_step(lm_loss, AdamWConfig())`` on qwen2-1.5b at full
-       width and 14 of its 28 layers (remat; the phase's time cut the depth)
+       width and 14 of its 28 layers (remat; the run's time cut the depth)
        over ``TokenStream(vocab, 4, 4096)``: a warm-up step, the same step
        in 2 microbatches from the same state (loss within rel 1e-3,
        grad_norm within rel 2e-2, gradient within 5e-2 of its norm), the
@@ -279,6 +283,43 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
     d. ``launch.train --reduced --steps 6 --ckpt-every 3`` on the card,
        then ``--steps 9``: the journal shows ``resumed`` at step 6.
 
+17. LM sharding (``models/sharding``, the sharded transformer, the grouped
+    MoE dispatch, ``train/pipeline``, the elastic restore).
+    a. ``lm_rules(make_host_mesh((1, 1)))``: a world of one over NCCL,
+       qwen2-1.5b at full width and 2 of its 28 layers: the sharded
+       ``lm_loss`` against the unsharded one (rel 1e-3), the sharded
+       prefill through ``flash_fwd`` and 4 decode steps' logits against the
+       unsharded ones (5e-2 of max |logits|).
+    b. The unsharded references on the card (3 train steps of
+       ``AdamWConfig()``, B = 4, S = 4096 (the train_4k cell's), remat;
+       the prompt's prefill and
+       16 greedy decode steps; mixtral's MoE layer by the one-rank
+       ``moe_layer_grouped(n_groups=2)``), then four spawned ranks on the
+       one card (gloo over CUDA tensors, ``run_ranks``; an ok flag
+       all-reduced after each step): the redistribute matrix (all-reduce,
+       all-gather, reduce-scatter, all-to-all, P2P; the port stages through
+       host copies the ops gloo refuses on CUDA tensors, which
+       ``gloo_native_probe`` finds), ``flash_fwd`` at a model rank's local
+       heads ([2, 1024, 6, 128] over 1 KV head) against its plain version,
+       the sharded prefill on (data 2, model 2) through ``flash_fwd`` (its
+       launches: one a layer a rank) and 16 decode steps on the sharded
+       caches fed the unsharded greedy tokens (logits within 5e-2 of max
+       |logits|), then 3 train steps (losses within rel 1e-3, grad_norm
+       within 2e-2 of the unsharded run's; bytes a rank by op and mesh
+       dim).
+    c. The same ranks on (pod 2, model 2): the GPipe loss of the first
+       batch in 4 microbatches and one step (loss within rel 1e-3 of the
+       unsharded ``lm_loss``, grad_norm within 2e-2).
+    d. mixtral-8x22b's MoE layer at full width (d_model 6144, 8 experts
+       top-2, d_ff 16,384), 2 groups of 4096 tokens over data 2 (EP over
+       data by an all-to-all, TP over model): routes equal to the one-rank
+       run's, outputs within 8·2⁻⁸ of max |y|; entries dropped per group.
+    e. A reduced qwen2 state (``reduced_lm``: the 3.27 GB state of 16c took
+       ~45 s of I/O) saved from (data 2, model 2), restored onto the same
+       mesh (the next step's loss bit-equal to the uninterrupted run's),
+       onto (pod 2, model 2) and, back in the main process, onto a world of
+       one: every leaf array-equal to the saved one.
+
 TF32 is switched off for matmuls and cuDNN, so every float32 product is a
 full float32 product.  The last two lines of standard output are the
 ``kernels`` JSON line and ``{"ok": true, "device": {...}}``.  Details go to
@@ -287,6 +328,7 @@ full float32 product.  The last two lines of standard output are the
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import json
@@ -348,6 +390,68 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+# every CLI subprocess started by start_clis; any still running when the
+# script exits (a phase failed while they ran) is killed then
+_CLIS: list = []
+
+
+@atexit.register
+def _stop_clis():
+    for proc in _CLIS:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def start_clis(runs: dict, out_dir: Path) -> dict:
+    """Starts each ``name: (args, timeout)`` of ``runs`` as ``python args``
+    from the checkout's root, all at once; ``finish_clis`` waits for them.
+    Each writes its standard output and error to ``chip_smoke_{name}.log``
+    and ``.err`` under ``out_dir`` (files, so that no pipe fills)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    started = {}
+    for name, (args, timeout) in runs.items():
+        out = out_dir / f"chip_smoke_{name}.log"
+        err = out_dir / f"chip_smoke_{name}.err"
+        with open(out, "w") as fo, open(err, "w") as fe:
+            proc = subprocess.Popen([sys.executable] + args, cwd=ROOT,
+                                    env=env, stdout=fo, stderr=fe)
+        _CLIS.append(proc)
+        started[name] = dict(proc=proc, t0=time.perf_counter(),
+                             timeout=timeout, out=out, err=err)
+    return started
+
+
+def finish_clis(started: dict) -> dict:
+    """Waits for the CLIs of ``start_clis``.  Returns, by name, the seconds
+    from the start to the exit (the CLIs ran side by side on the card),
+    the exit code, the standard output and the end of the error; raises
+    if one exits non-zero or outlives its timeout (then killed)."""
+    done = {}
+    while len(done) < len(started):
+        for name, c in started.items():
+            if name in done:
+                continue
+            rc = c["proc"].poll()
+            secs = time.perf_counter() - c["t0"]
+            if rc is None and secs <= c["timeout"]:
+                continue
+            if rc is None:
+                c["proc"].kill()
+                c["proc"].wait()
+                raise AssertionError(f"{name} CLI still ran after "
+                                     f"{c['timeout']} s")
+            err = c["err"].read_text()
+            if rc != 0:
+                raise AssertionError(f"{name} CLI exited {rc}: {err[-2000:]}")
+            done[name] = dict(seconds=secs, rc=rc,
+                              stdout=c["out"].read_text(), stderr=err[-2000:])
+        time.sleep(0.05)
+    return done
 
 
 def box_labels(side: int, box: int = 8):
@@ -1452,11 +1556,12 @@ def lm_phase(cfg, batch: int, seq: int, gen_len: int, seed: int):
 
 # delta staging traffic: the reference CLI's --drift-sparsity 0.01 --drift 0.05
 DRIFT_FRAC, DRIFT_SIGMA = 0.01, 0.05
-# presolve's instance: the reference CLI's --family road at side 768 (n =
-# 589,824), cut from 1024 for the run's time beside phase 16: at 1024 the
-# run took 1,138.4-1,196.5 s of its 1,200 s (two kernelizes of 50-78 s,
-# linear in n)
-ROAD_SIDE = 768
+# presolve's instance: the reference CLI's --family road at side 512 (n =
+# 262,144), cut for the run's time: at 1024 the run took 1,138.4-1,196.5 s
+# of its 1,200 s (two kernelizes of 50-78 s, linear in n); at 768 the
+# phase took ~95 s, which left the run too little room under its limit on
+# a slower host; at 512 it takes ~32 s
+ROAD_SIDE = 512
 
 
 def drift_edges(rng, c, frac: float, sigma: float = DRIFT_SIGMA, among=None):
@@ -1916,33 +2021,39 @@ def presolve_phase(seed: int, side: int = ROAD_SIDE):
                              seconds=t_small))
 
 
-def cli_phase(out_dir: Path):
-    """Phase 11d: the two CLIs as subprocesses on the card."""
-    import os
+def cli_runs(out_dir: Path) -> dict:
+    """The four CLIs that phases 11d, 12d and 13c hold, as ``start_clis``
+    takes them: they run side by side on the card in phase 11d, and each
+    phase checks its own."""
+    def json_out(name):
+        return ["--json-out", str(out_dir / f"chip_smoke_{name}.json")]
 
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = {}
-    runs = {
+    return {
         "solve": (["-m", "repro_torch.launch.solve", "--family", "road",
-                   "--side", "256", "--irls", "20"], 900),
+                   "--side", "256", "--irls", "20"] + json_out("solve"), 900),
         "mincut_serve": (["-m", "repro_torch.launch.mincut_serve", "--warm",
-                          "--presolve", "--drift-sparsity", "0.05"], 900)}
-    for name, (args, timeout) in runs.items():
-        path = out_dir / f"chip_smoke_{name}.json"
-        t = time.perf_counter()
-        proc = subprocess.run([sys.executable] + args +
-                              ["--json-out", str(path)], cwd=ROOT, env=env,
-                              capture_output=True, text=True, timeout=timeout)
-        secs = time.perf_counter() - t
-        (out_dir / f"chip_smoke_{name}.log").write_text(proc.stdout +
-                                                        proc.stderr)
-        if proc.returncode != 0:
-            raise AssertionError(f"{name} CLI exited {proc.returncode}: "
-                                 f"{proc.stderr[-2000:]}")
-        got = json.loads(path.read_text())
-        tail = proc.stdout.strip().splitlines()[-1]
-        log(f"[cli] {name}: {secs:.1f} s; last line: {tail}")
-        out[name] = dict(seconds=secs, json=got)
+                          "--presolve", "--drift-sparsity", "0.05"]
+                         + json_out("mincut_serve"), 900),
+        "cut_tree": (["-m", "repro_torch.launch.cut_tree", "--family",
+                      "grid", "--side", str(EXACT_SIDE), "--solver", "irls",
+                      "--refine", "--verify-pairs", str(VERIFY_PAIRS)]
+                     + json_out("cut_tree"), 600),
+        "solve_sharded": (["-m", "repro_torch.launch.solve", "--family",
+                           "grid", "--side", "48", "--irls", "10",
+                           "--backend", "sharded"]
+                          + json_out("solve_sharded"), 600)}
+
+
+def cli_phase(clis: dict, out_dir: Path):
+    """Phase 11d: the two CLIs as subprocesses on the card (run by
+    ``finish_clis`` beside 12d's and 13c's)."""
+    out = {}
+    for name in ("solve", "mincut_serve"):
+        got = json.loads((out_dir / f"chip_smoke_{name}.json").read_text())
+        tail = clis[name]["stdout"].strip().splitlines()[-1]
+        log(f"[cli] {name}: {clis[name]['seconds']:.1f} s beside the other "
+            f"CLIs; last line: {tail}")
+        out[name] = dict(seconds=clis[name]["seconds"], json=got)
     s = out["solve"]["json"]
     keys = {"n", "m", "t_build", "t_problem", "t_irls", "backend",
             "cut_two_level", "t_two_level", "cut_exact", "t_exact",
@@ -1964,19 +2075,22 @@ def cli_phase(out_dir: Path):
 
 # -- phase 12: cut trees at full width -----------------------------------------
 
-# the cut_tree CLI's --family grid --side 40 (n = 1,600, m = 3,120), in
+# the cut_tree CLI's --family grid --side 24 (n = 576, m = 1,104), in
 # batches of up to 64 pair solves: each pair solve costs ~35-50 ms of
-# launches (the batched PCG's per-lane inner products), so a side-64 tree
-# (~4,800 solves) takes 165-250 s and a side-48 one 155-184 s, more than
-# the run can give it beside the other phases.  Side 32 is no cut: its
-# single-node global cut sets off speculation that is discarded (1,681
-# solves for 1,023 edges, 119.5 s), and its 25 pairs missed Dinic by 7.5e-2
-CUTTREE_SIDE, CUTTREE_BATCH = 40, 64
-# 12b's route check (in batches of up to ROUTE_BATCH; three builds, 67 s
-# at side 10, cut to 8 for the run's time beside phase 16) and the exact
-# oracles of 12c and 12d, at sides where their IRLS builds and repairs fit
-# the run's time and where Dinic takes milliseconds a pair
-ROUTE_SIDE, ROUTE_BATCH, EXACT_SIDE = 8, 8, 10
+# launches (the batched PCG's per-lane inner products) and each wave ~0.9
+# s, so a side-64 tree (~4,800 solves) takes 165-250 s, a side-48 one
+# 155-184 s, side 40 133 s (2,115 solves) and side 28 93 s (1,434), more
+# than the run can give it beside the other phases; side 24 takes ~45 s
+# (1,145 solves in 19 waves).  Side 32 is no cut: its single-node global
+# cut sets off speculation that is discarded (1,681 solves for 1,023
+# edges, 119.5 s), and its 25 pairs missed Dinic by 7.5e-2
+CUTTREE_SIDE, CUTTREE_BATCH = 24, 64
+# 12b's route check (in batches of up to ROUTE_BATCH; three builds: 67 s
+# at side 10, 51 s at 8, 31 s at 6) and the exact oracles of 12c and 12d,
+# at sides where their IRLS builds and repairs fit the run's time and
+# where Dinic takes milliseconds a pair (12d's two refined builds ~64 s at
+# side 10)
+ROUTE_SIDE, ROUTE_BATCH, EXACT_SIDE = 6, 8, 8
 # random pair queries on the finished tree; pairs checked against Dinic
 # (the reference CLI's --verify-pairs gate at its --verify-rtol 1e-3)
 TREE_QUERIES, VERIFY_PAIRS = 10000, 25
@@ -2294,7 +2408,8 @@ def cuttree_exact_phase(side: int, seed: int):
     return record, (inst, exact, c_new, fresh)
 
 
-def cuttree_service_phase(ctx, seed: int, sink: str, out_dir: Path):
+def cuttree_service_phase(ctx, seed: int, sink: str, out_dir: Path,
+                          cut_tree_cli: dict):
     """Phase 12d: ``CutTreeService`` on 12c's instance through the kernel:
     the first query builds the refined IRLS tree (built twice, the second
     time by a fresh service: the same tree; held against Dinic edge
@@ -2374,29 +2489,24 @@ def cuttree_service_phase(ctx, seed: int, sink: str, out_dir: Path):
         raise AssertionError(f"service: misses {st.misses}, hits {st.hits}, "
                              f"{what}, rel {rel}, {again}")
 
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     path = out_dir / "chip_smoke_cut_tree.json"
-    clis = {}
-    for name, args in (
-            ("cut_tree", ["-m", "repro_torch.launch.cut_tree", "--family",
-                          "grid", "--side", str(EXACT_SIDE), "--solver",
-                          "irls", "--refine", "--verify-pairs",
-                          str(VERIFY_PAIRS), "--json-out", str(path)]),
-            ("obs", ["-m", "repro_torch.launch.obs", sink])):
-        t = time.perf_counter()
-        proc = subprocess.run([sys.executable] + args, cwd=ROOT, env=env,
-                              capture_output=True, text=True, timeout=600)
-        clis[name] = dict(seconds=time.perf_counter() - t,
-                          rc=proc.returncode)
-        (out_dir / f"chip_smoke_{name}.log").write_text(proc.stdout +
-                                                        proc.stderr)
-        if proc.returncode != 0:
-            raise AssertionError(f"{name} CLI exited {proc.returncode}: "
-                                 f"{proc.stderr[-2000:]}")
-        lines = proc.stdout.strip().splitlines()
-        log(f"[cli] {name}: {clis[name]['seconds']:.1f} s; "
-            f"{lines[-1] if name == 'cut_tree' else lines[0]}")
-        clis[name]["stdout"] = proc.stdout
+    clis = {"cut_tree": {k: cut_tree_cli[k] for k in ("seconds", "rc",
+                                                      "stdout")}}
+    log(f"[cli] cut_tree: {clis['cut_tree']['seconds']:.1f} s beside 11d's "
+        f"CLIs; {clis['cut_tree']['stdout'].strip().splitlines()[-1]}")
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.obs",
+                           sink], cwd=ROOT,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                          capture_output=True, text=True, timeout=600)
+    clis["obs"] = dict(seconds=time.perf_counter() - t, rc=proc.returncode,
+                       stdout=proc.stdout)
+    (out_dir / "chip_smoke_obs.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise AssertionError(f"obs CLI exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    log(f"[cli] obs: {clis['obs']['seconds']:.1f} s; "
+        f"{proc.stdout.strip().splitlines()[0]}")
     got = json.loads(path.read_text())
     log(f"[cli] cut_tree: verify_max_rel {got['verify_max_rel']:.2e} "
         f"(tolerance 1e-3), {got['meta']['n_solves']} solves")
@@ -2776,37 +2886,23 @@ def sharded_ranks_phase(cfg, world_one: dict, seed: int, out_dir: Path):
     return got
 
 
-def sharded_cli_phase(out_dir: Path):
+def sharded_cli_phase(cli: dict, out_dir: Path):
     """Phase 13c: ``launch.solve --backend sharded`` as a subprocess in a
-    world of one on the card."""
-    import os
-
+    world of one on the card (run by ``finish_clis`` in phase 11d)."""
     path = out_dir / "chip_smoke_solve_sharded.json"
-    t = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.solve", "--family",
-         "grid", "--side", "48", "--irls", "10", "--backend", "sharded",
-         "--json-out", str(path)], cwd=ROOT,
-        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
-        capture_output=True, text=True, timeout=600)
-    secs = time.perf_counter() - t
-    (out_dir / "chip_smoke_solve_sharded.log").write_text(proc.stdout
-                                                          + proc.stderr)
-    if proc.returncode != 0:
-        raise AssertionError(f"sharded solve CLI exited {proc.returncode}: "
-                             f"{proc.stderr[-2000:]}")
+    secs = cli["seconds"]
     s = json.loads(path.read_text())
     log(f"[sharded cli] {secs:.1f} s: backend {s['backend']}, cut "
         f"{s['cut_two_level']!r} vs exact {s['cut_exact']!r}: "
         f"delta_two_level {s['delta_two_level']:.2e} (tolerance 1e-3), IRLS "
-        f"{s['t_irls']:.2f} s")
+        f"{s['t_irls']:.2f} s (beside 11d's CLIs)")
     if s["backend"] != "sharded" or not abs(s["delta_two_level"]) <= 1e-3:
         raise AssertionError(f"sharded solve CLI: {s}")
     return dict(seconds=secs, json=s)
 
 
 def sharded_phase(inst, labels, cfg, host_cut: float, seed: int,
-                  out_dir: Path) -> dict:
+                  out_dir: Path, cli: dict) -> dict:
     """Phase 13: 13a, 13b and 13c; the world of one is taken down after
     13a, before the ranks of 13b start.  The solver's float32 sentinel
     warns on every solve here (eps = 1e-6 is below float32's reach at
@@ -2823,7 +2919,7 @@ def sharded_phase(inst, labels, cfg, host_cut: float, seed: int,
                                                     host_cut, seed)}
     release_world()
     out["ranks"] = sharded_ranks_phase(cfg, out["world_one"], seed, out_dir)
-    out["cli"] = sharded_cli_phase(out_dir)
+    out["cli"] = sharded_cli_phase(cli, out_dir)
     out["seconds"] = time.perf_counter() - t
     log(f"[sharded] phase 13 in {out['seconds']:.1f} s")
     return out
@@ -3602,11 +3698,11 @@ TRAIN_BWD_SHAPES = (("qwen2-1.5b", 2, 4096, 12, 2, 128, None, 512, 1024),
 # once to bf16 (u = 2^-8), other float32 orders below that
 TRAIN_BWD_RTOL = 1e-2
 # 16b: qwen2-1.5b at full width, the train_4k cell's sequence length at
-# batch 4 on one card, at 14 of its 28 layers: at 28 the phase took 99.8 s
-# of its ~90 s, at 14 85.9 s.  Depth costs the run ~0.8 s a layer and the
-# host phases vary by ~70 s between runs, so the run's margin under 1,200 s
-# comes from phases 11c and 12b (at their earlier sizes and 7 layers the
-# run took 1,177.6 s)
+# batch 4 on one card, at 14 of its 28 layers: at 28 the phase took 99.8
+# s of its ~90 s, at 14 85.9–91.0 s, at 7 77.5 s.  Depth costs the run
+# ~0.8 s a layer and the host phases vary by ~80 s between runs (phases
+# 1–15: 962.1 s and 1,039 s on an H100), so phases 11c and 12 were cut to
+# make room for phase 17 rather than this depth
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 4096, 3
 TRAIN_LAYERS = 14
 # the microbatched step (two halves of the batch, each its own forward:
@@ -4055,6 +4151,664 @@ def train_phase(seed: int, out_dir: Path):
     return out
 
 
+# -- phase 17: LM sharding on the one card -------------------------------------
+
+# 17a-c: qwen2-1.5b at full width and LM_SHARD_LAYERS of its 28 layers (the
+# phase's ~110 s cut the depth; the widths all divide the model axis of 2)
+LM_SHARD_LAYERS = 2
+# the train_4k cell's S (on an H100 phase 17 took 54.8 s at 4096 and
+# 47.6 s at 1024: a step's bytes are mostly FSDP's, whatever S)
+LM_SHARD_BATCH, LM_SHARD_SEQ = 4, 4096
+LM_SHARD_STEPS, LM_SHARD_DECODE = 3, 16
+# 17c: GPipe microbatches over the pod axis of 2 (one layer a stage)
+PIPE_MICRO = 4
+# 17d: mixtral-8x22b's MoE layer at full width, 2 groups of 4096 tokens
+MOE_SHARD_GROUPS, MOE_SHARD_TOKENS = 2, 4096
+# a rank's collectives fail the rank after this long (a dead peer)
+LM_SHARD_TIMEOUT_S = 180
+# the collectives of the redistribute matrix (17b), on CUDA tensors over
+# gloo; ``GLOO_CUDA_STAGED`` of distributed/collectives.py names those that
+# the port runs on host copies instead
+GLOO_MATRIX = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all",
+               "send_recv")
+
+
+def lm_shard_cfg(**kw):
+    from repro_torch.configs import lm as lm_configs
+
+    return dataclasses.replace(lm_configs.qwen2_1_5b(),
+                               n_layers=LM_SHARD_LAYERS, **kw)
+
+
+def lm_shard_batches(cfg, seed: int):
+    """LM_SHARD_STEPS training batches and the serving prompt, [B, S] int32
+    numpy each, the same on every rank (``TokenStream`` from a seed)."""
+    from repro_torch.data.lm import TokenStream
+
+    stream = TokenStream(cfg.vocab, LM_SHARD_BATCH, LM_SHARD_SEQ,
+                         seed=seed + 17)
+    return [next(stream) for _ in range(LM_SHARD_STEPS + 1)]
+
+
+def moe_shard_layer(seed: int):
+    """mixtral-8x22b's MoE layer at full width (router [D, E], w1/w3
+    [E, D, F], w2 [E, F, D], bf16, N(0, 1/fan_in)) and its tokens
+    [groups·tokens, D], seeded on the card alike on every rank."""
+    import torch
+
+    from repro_torch.configs import lm as lm_configs
+    from repro_torch.models import layers as nn
+
+    cfg = lm_configs.mixtral_8x22b()
+    D, F, E = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1717)
+
+    def draw(shape, fan_in):
+        x = torch.empty(shape, dtype=torch.bfloat16, device="cuda")
+        for i in range(shape[0]):         # one expert's slice at a time
+            x[i] = (torch.randn(shape[1:], generator=gen, device="cuda")
+                    / fan_in ** 0.5).to(torch.bfloat16)
+        return x
+
+    router = (torch.randn((D, E), generator=gen, device="cuda")
+              / D ** 0.5).to(torch.bfloat16)
+    p = nn.MoEParams(router, draw((E, D, F), D), draw((E, D, F), D),
+                     draw((E, F, D), F))
+    x = torch.randn((MOE_SHARD_GROUPS * MOE_SHARD_TOKENS, D), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    return cfg, p, x
+
+
+def lm_shard_reference(seed: int, path: Path):
+    """The unsharded runs phase 17's ranks are held against, on the card,
+    saved to ``path``: LM_SHARD_STEPS train steps from the seeded state
+    (each step's loss and grad_norm; the first is 17c's reference too: the
+    pipeline runs that batch as PIPE_MICRO microbatches), the prompt's
+    prefill through ``flash_fwd`` and LM_SHARD_DECODE greedy decode steps
+    (their logits and tokens), and mixtral's MoE layer by the one-rank
+    ``moe_layer_grouped(n_groups=MOE_SHARD_GROUPS)`` with its routes."""
+    import torch
+
+    from repro_torch.models import layers as nn
+    from repro_torch.models import transformer as tr
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import build_train_step
+
+    t = time.perf_counter()
+    cfg = lm_shard_cfg()
+    batches = [torch.from_numpy(b).to("cuda")
+               for b in lm_shard_batches(cfg, seed)]
+    opt = AdamWConfig()
+    params, state = train_state(cfg, opt, seed)
+    step = build_train_step(lambda p, b: tr.lm_loss(p, b, cfg), opt)
+    train = []
+    for b in batches[:LM_SHARD_STEPS]:
+        _, _, m = step(params, state, b)
+        train.append({k: float(v) for k, v in m.items()})
+    del params, state
+    kcfg = lm_shard_cfg(use_pallas_attention=True)
+    params = tr.init_params(kcfg, torch.Generator(device="cuda").manual_seed(
+        seed), device="cuda").tree()
+    prompt = batches[LM_SHARD_STEPS]
+    with torch.no_grad():
+        logits, cache = tr.prefill(params, prompt, kcfg,
+                                   pad_cache_to=LM_SHARD_SEQ + LM_SHARD_DECODE)
+        decode, tokens = [], []
+        for i in range(LM_SHARD_DECODE):
+            tok = logits.argmax(dim=-1) if i == 0 else decode[-1].argmax(-1)
+            tokens.append(tok)
+            got, cache = tr.decode_step(params, cache, tok, LM_SHARD_SEQ + i,
+                                        kcfg)
+            decode.append(got)
+    del params, cache
+    torch.cuda.empty_cache()
+    mcfg, p, x = moe_shard_layer(seed)
+    with torch.no_grad():
+        y = nn.moe_layer_grouped(x, p, mcfg.moe.top_k,
+                                 mcfg.moe.capacity_factor, MOE_SHARD_GROUPS)
+        r = nn.moe_routes(x.reshape(MOE_SHARD_GROUPS, MOE_SHARD_TOKENS, -1),
+                          p.router, mcfg.moe.top_k, mcfg.moe.capacity_factor)
+    torch.save({"train": train, "prefill": logits.cpu(),
+                "decode": torch.stack(decode).cpu(),
+                "tokens": torch.stack(tokens).cpu(),
+                "moe": {"y": y.cpu(), "experts": r.experts.cpu(),
+                        "keep": r.keep.cpu()}}, path)
+    del p, x, y, r
+    torch.cuda.empty_cache()
+    return {"train": train, "seconds": time.perf_counter() - t}
+
+
+def lm_world_one_phase(seed: int):
+    """Phase 17a: ``lm_rules`` on a (1, 1) mesh of a world of one over NCCL
+    (``make_host_mesh``), qwen2-1.5b at full width and LM_SHARD_LAYERS
+    layers: the sharded ``lm_loss`` of the first training batch against the
+    unsharded one, the sharded prefill (through ``flash_fwd``) and four
+    decode steps' logits against the unsharded ones (LOGIT_RTOL of max
+    |logits|), and one all-reduce over the mesh's model group."""
+    import torch
+
+    from repro_torch.distributed.collectives import census, release_world
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.sharding import lm_rules
+
+    t = time.perf_counter()
+    cfg = lm_shard_cfg(use_pallas_attention=True)
+    batches = lm_shard_batches(cfg, seed)
+    toks = torch.from_numpy(batches[0]).to("cuda")
+    params = tr.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        seed), device="cuda").tree()
+    mesh = make_host_mesh((1, 1), device="cuda")
+    backend = torch.distributed.get_backend(mesh.get_group("model"))
+    rules = lm_rules(mesh)
+    sp = tr.shard_params(params, tr.param_shardings(cfg, rules))
+    census.reset()
+    with torch.no_grad():
+        one = float(tr.lm_loss(params, toks, cfg))
+        got = float(tr.lm_loss(sp, toks, cfg, rules))
+        cap = LM_SHARD_SEQ + 4
+        want_l, wc = tr.prefill(params, toks, cfg, pad_cache_to=cap)
+        got_l, gc = tr.prefill(sp, toks, cfg, rules, pad_cache_to=cap)
+        errs = []
+        for i in range(5):
+            g = got_l.full_tensor()
+            errs.append(float((g - want_l).abs().max()
+                              / want_l.abs().max()))
+            if i == 4:
+                break
+            tok = want_l.argmax(-1)
+            want_l, wc = tr.decode_step(params, wc, tok, LM_SHARD_SEQ + i,
+                                        cfg)
+            got_l, gc = tr.decode_step(sp, gc, tok, LM_SHARD_SEQ + i, cfg,
+                                       rules)
+    x = torch.ones(4, device="cuda")
+    torch.distributed.all_reduce(x, group=mesh.get_group("model"))
+    rel = abs(got - one) / abs(one)
+    log(f"[lm shard] 17a world one ({backend} on the model group), "
+        f"{cfg.name} at {cfg.n_layers} layers: sharded lm_loss {got!r} vs "
+        f"unsharded {one!r} (rel {rel:.2e}, tolerance {MICRO_RTOL}); "
+        f"prefill and 4 decode steps' logits rel {[f'{e:.2e}' for e in errs]}"
+        f" (tolerance {LOGIT_RTOL}); collectives {census.snapshot()}")
+    if not (rel <= MICRO_RTOL and max(errs) <= LOGIT_RTOL
+            and float(x[0]) == 1.0):
+        raise AssertionError(f"17a: loss rel {rel}, logits {errs}")
+    del params, sp, wc, gc
+    release_world()
+    torch.cuda.empty_cache()
+    return dict(loss=got, unsharded=one, rel=rel, logits_rel=errs,
+                backend=backend, seconds=time.perf_counter() - t)
+
+
+def gloo_cuda_matrix(rank: int, native: bool, ops=GLOO_MATRIX):
+    """17b's redistribute matrix: each collective of ``ops`` on small CUDA
+    tensors over the default gloo group of the four ranks, its values
+    checked; ``native`` passes the CUDA tensors to gloo, else the ops of
+    ``GLOO_CUDA_STAGED`` get host copies as the port's collectives give
+    them.  {op: "native" | "staged" | the error}."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives as C
+
+    n = dist.get_world_size()
+    rows = [torch.arange(8.0) + 8 * r for r in range(n)]
+    x = rows[rank].to("cuda")
+    out = {}
+
+    def run(op):
+        src = x.cpu() if not native and op in C.GLOO_CUDA_STAGED else x
+        if op == "all_reduce":
+            y = src.clone()
+            dist.all_reduce(y)
+            want = sum(rows)
+        elif op == "all_gather":
+            parts = [torch.empty_like(src) for _ in range(n)]
+            dist.all_gather(parts, src)
+            y, want = torch.cat(parts), torch.cat(rows)
+        elif op == "reduce_scatter":
+            y = src.new_empty(8 // n)
+            dist.reduce_scatter_tensor(y, src)
+            want = sum(rows).chunk(n)[rank]
+        elif op == "all_to_all":
+            y = torch.empty_like(src)
+            dist.all_to_all_single(y, src)
+            want = torch.cat([r.chunk(n)[rank] for r in rows])
+        else:           # send_recv: to the next rank, from the previous
+            y = torch.empty_like(src)
+            for w in dist.batch_isend_irecv([
+                    dist.P2POp(dist.isend, src, (rank + 1) % n),
+                    dist.P2POp(dist.irecv, y, (rank - 1) % n)]):
+                w.wait()
+            want = rows[(rank - 1) % n]
+        if not torch.equal(y.cpu(), want):
+            raise AssertionError(f"{op}: {y.tolist()} vs {want.tolist()}")
+        return "native" if src.is_cuda else "staged"
+
+    for op in ops:
+        try:
+            out[op] = run(op)
+        except Exception as err:                    # noqa: BLE001
+            out[op] = f"{type(err).__name__}: {str(err)[:160]}"
+    return out
+
+
+def _probe_rank(rank: int, store: str, out_path: str, op: str) -> None:
+    """One rank of ``gloo_native_probe``: ``op`` on CUDA tensors passed to
+    gloo as they are."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", store=dist.FileStore(store, SHARD_RANKS),
+                            rank=rank, world_size=SHARD_RANKS,
+                            timeout=datetime.timedelta(seconds=60))
+    torch.cuda.set_device(0)
+    res = gloo_cuda_matrix(rank, native=True, ops=(op,))
+    Path(f"{out_path}.{rank}").write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
+def gloo_native_probe(out_dir: Path) -> dict:
+    """Which collectives gloo carries on CUDA tensors: each op of
+    GLOO_MATRIX natively in four spawned ranks of its own (a rank that gloo
+    aborts ends only that op's ranks).  Not run by ``main`` (five spawns
+    cost ~40 s); ``GLOO_CUDA_STAGED`` holds what it found.  {op: "native" |
+    the error}."""
+    out = {}
+    for op in GLOO_MATRIX:
+        path = out_dir / f"gloo_probe_{op}.json"
+        try:
+            run_ranks(_probe_rank, path, (op,), timeout_s=120)
+            res = {json.loads(Path(f"{path}.{r}").read_text())[op]
+                   for r in range(SHARD_RANKS)}
+            out[op] = res.pop() if len(res) == 1 else sorted(res)
+        except AssertionError as err:
+            out[op] = f"ranks aborted: {err}"
+    log(f"[gloo probe] CUDA tensors passed to gloo as they are: {out}")
+    return out
+
+
+def _rel(got, want) -> float:
+    """max |got − want| / max |want|, in float32 on the host."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _lm_rank(rank: int, store: str, out_path: str, seed: int, ref_path: str,
+             ckpt_dir: str) -> None:
+    """One rank of 17b-e (a spawned process, gloo over CUDA tensors, every
+    rank on the one card).  Each step all-reduces an ok flag, so a rank
+    that fails fails every rank at that step instead of leaving them in a
+    collective; the rank writes its numbers to ``out_path.<rank>``."""
+    import datetime
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import lm as lm_configs
+    from repro_torch.distributed import collectives as C
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers as nn
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.sharding import ShardingRules, lm_rules, whole
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train import pipeline as pl
+    from repro_torch.train.optimizer import (AdamWConfig, init_state,
+                                             named_leaves)
+    from repro_torch.train.train_step import build_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, SHARD_RANKS),
+                            rank=rank, world_size=SHARD_RANKS,
+                            timeout=datetime.timedelta(
+                                seconds=LM_SHARD_TIMEOUT_S))
+    torch.cuda.set_device(0)
+    res = {"rank": rank}
+
+    def phase(name, fn):
+        t = time.perf_counter()
+        err, got = None, None
+        try:
+            got = fn()
+            torch.cuda.synchronize()
+        except Exception:                           # noqa: BLE001
+            err = traceback.format_exc()
+        flag = torch.tensor([0.0 if err else 1.0])
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+        if err:
+            raise RuntimeError(f"rank {rank}, {name}:\n{err}")
+        if float(flag) < 1.0:
+            raise RuntimeError(f"rank {rank}, {name}: another rank failed")
+        res[name] = got
+        res[f"{name}_s"] = time.perf_counter() - t
+
+    phase("matrix", lambda: gloo_cuda_matrix(rank, native=False))
+    want = torch.load(ref_path)
+    cfg = lm_shard_cfg()
+    kcfg = lm_shard_cfg(use_pallas_attention=True)
+    B, S = LM_SHARD_BATCH, LM_SHARD_SEQ
+    batches = [torch.from_numpy(b).to("cuda")
+               for b in lm_shard_batches(cfg, seed)]
+    mesh = make_host_mesh((2, 2), ("data", "model"), device="cuda")
+    pmesh = make_host_mesh((2, 2), ("pod", "model"), device="cuda")
+    rules = lm_rules(mesh)
+    opt = AdamWConfig()
+
+    def seeded(c):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return tr.init_params(c, gen, device="cuda").tree()
+
+    def flash_local():
+        """flash_fwd at a model rank's local heads of qwen2's prefill."""
+        H_l, KV_l, D = cfg.n_heads // 2, cfg.n_kv_heads // 2, cfg.d_head
+        gen = torch.Generator(device="cuda").manual_seed(seed + 23)
+        q, k, v = (torch.randn((B // 2, S, n, D), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for n in (H_l, KV_l, KV_l))
+        kw = dict(g_per_kv=H_l // KV_l, causal=True, scale=D ** -0.5)
+        out, _ = ops.flash_fwd(q, k, v, **kw)
+        q3, k3, v3 = (t.contiguous() for t in ops._regroup(q, k, v))
+        plain, _ = ref.flash_fwd_ref(q3, k3, v3, **kw)
+        s_out, _ = ref.flash_fwd_scales(q3, k3, v3, **kw)
+        err = check_close(f"[lm shard] rank {rank} flash_fwd [{B // 2}, {S}, "
+                          f"{H_l}, {D}] over {KV_l} KV heads",
+                          [ops._regroup(out, k, v)[0].float()],
+                          [plain.float()], FLASH_RTOL["bfloat16"], [s_out])
+        return dict(shape=[B // 2, S, H_l, D], kv=KV_l, max_abs_err=err,
+                    ms=time_ms(lambda: ops.flash_fwd(q, k, v, **kw), 10))
+
+    def serve():
+        """Sharded prefill of the prompt through flash_fwd on the local
+        heads, then LM_SHARD_DECODE decode steps on the sharded caches fed
+        the unsharded run's greedy tokens; params TP only (no FSDP gather
+        at every step)."""
+        tp_rules = ShardingRules(mesh, dict(rules.rules, fsdp=None))
+        sp = tr.shard_params(seeded(kcfg), tr.param_shardings(kcfg, tp_rules))
+        C.census.reset()
+        ops.reset_launches()
+        with torch.no_grad():
+            logits, cache = tr.prefill(sp, batches[-1], kcfg, rules,
+                                       pad_cache_to=S + LM_SHARD_DECODE)
+            launches = dict(ops.launches)
+            prefill_bytes = C.census.snapshot()
+            errs = [_rel(whole(logits), want["prefill"])]
+            for i in range(LM_SHARD_DECODE):
+                logits, cache = tr.decode_step(
+                    sp, cache, want["tokens"][i].to("cuda"), S + i, kcfg,
+                    rules)
+                errs.append(_rel(whole(logits), want["decode"][i]))
+        return dict(logits_rel=errs, launches=launches,
+                    prefill_census=prefill_bytes,
+                    cache_placements={k: str(v.placements)
+                                      for k, v in cache.items()})
+
+    def train():
+        sp = tr.shard_params(seeded(cfg), tr.param_shardings(cfg, rules))
+        state = init_state(opt, sp)
+        step = build_train_step(lambda p, b: tr.lm_loss(p, b, cfg, rules),
+                                opt)
+        steps, first = [], None
+        torch.cuda.reset_peak_memory_stats()
+        for i, b in enumerate(batches[:LM_SHARD_STEPS]):
+            C.census.reset()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, _, m = step(sp, state, b)
+            m = {k: float(v) for k, v in m.items()}
+            steps.append(dict(m, seconds=time.perf_counter() - t))
+            first = first or C.census.snapshot()
+        return dict(steps=steps, census_step=first,
+                    peak_bytes=torch.cuda.max_memory_allocated())
+
+    def pipe():
+        staged = pl.stage_params_from_flat(seeded(cfg), 2)
+        sp = tr.shard_params(staged, pl.stage_param_shardings(cfg, pmesh))
+        state = init_state(opt, sp)
+        step = build_train_step(pl.build_pipeline_loss(cfg, pmesh, None,
+                                                       PIPE_MICRO), opt)
+        C.census.reset()
+        toks = batches[0].reshape(PIPE_MICRO, B // PIPE_MICRO, S)
+        _, _, m = step(sp, state, toks)
+        return dict({k: float(v) for k, v in m.items()},
+                    census=C.census.snapshot())
+
+    def moe():
+        mcfg, p, x = moe_shard_layer(seed)
+        specs = {"router": ("fsdp", None),
+                 "w1": ("expert_ep", "fsdp", "d_ff"),
+                 "w3": ("expert_ep", "fsdp", "d_ff"),
+                 "w2": ("expert_ep", "d_ff", "fsdp")}
+        pd = nn.MoEParams(*(
+            tr.shard_params(getattr(p, k), rules.named_sharding(
+                *specs[k], shape=getattr(p, k).shape))
+            for k in nn.MoEParams._fields))
+        router = p.router
+        del p
+        torch.cuda.empty_cache()
+        g = C.mesh_coord(mesh, ("data",))
+        T = MOE_SHARD_TOKENS
+        xl = x[g * T:(g + 1) * T]
+        C.census.reset()
+        with torch.no_grad():
+            y = nn.moe_layer_grouped(xl, pd, mcfg.moe.top_k,
+                                     mcfg.moe.capacity_factor,
+                                     MOE_SHARD_GROUPS, rules)
+            r = nn.moe_routes(xl, router, mcfg.moe.top_k,
+                              mcfg.moe.capacity_factor)
+        ref_y = want["moe"]["y"][g * T:(g + 1) * T]
+        return dict(
+            group=g, y_rel=_rel(y, ref_y),
+            routes_equal=bool(torch.equal(r.experts.cpu(),
+                                          want["moe"]["experts"][g])
+                              and torch.equal(r.keep.cpu(),
+                                              want["moe"]["keep"][g])),
+            dropped=int((~r.keep).sum()), entries=int(r.keep.numel()),
+            placements={k: str(getattr(pd, k).placements)
+                        for k in nn.MoEParams._fields},
+            census=C.census.snapshot())
+
+    def elastic():
+        """A reduced qwen2 state on the (data 2, model 2) mesh: a step,
+        a save, the next step uninterrupted; restored onto the same mesh
+        and stepped again, and onto (pod 2, model 2)."""
+        ecfg = lm_configs.reduced_lm("qwen2-1.5b")
+        psh = tr.param_shardings(ecfg, rules)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 29)
+        sp = tr.shard_params(tr.init_params(ecfg, gen, device="cuda").tree(),
+                             psh)
+        state = init_state(opt, sp)
+        step = build_train_step(lambda p, b: tr.lm_loss(p, b, ecfg, rules),
+                                opt)
+        toks = torch.randint(0, ecfg.vocab, (2, B, 64), generator=gen,
+                             device="cuda")
+        step(sp, state, toks[0])
+        t = time.perf_counter()
+        ck.save(ckpt_dir, 1, [sp, state])
+        save_s = time.perf_counter() - t
+        saved = [whole(v).clone() for _, v in named_leaves([sp, state])]
+        if rank == 0:
+            torch.save([v.cpu() for v in saved], f"{ckpt_dir}/saved.pt")
+        _, _, m = step(sp, state, toks[1])
+        out = dict(save_s=save_s, loss=float(m["loss"]))
+        for label, msh in (("same", mesh), ("pod", pmesh)):
+            r = lm_rules(msh)
+            ps = tr.param_shardings(ecfg, r)
+            t = time.perf_counter()
+            _, tree, _ = ck.restore(ckpt_dir, 1, device="cuda", shardings=[
+                ps, {"m": ps, "v": ps, "count": None}])
+            out[f"{label}_restore_s"] = time.perf_counter() - t
+            leaves = [v for _, v in named_leaves(tree)]
+            out[f"{label}_equal"] = all(
+                torch.equal(whole(a), b) for a, b in zip(leaves, saved))
+            out[f"{label}_placed"] = (
+                tree[0]["embed"].device_mesh is msh
+                and list(tree[0]["embed"].placements) == ps["embed"][1])
+            if label == "same":
+                rstep = build_train_step(
+                    lambda p, b: tr.lm_loss(p, b, ecfg, r), opt)
+                _, _, m2 = rstep(tree[0], tree[1], toks[1])
+                out["resumed_loss"] = float(m2["loss"])
+        return out
+
+    if rank == 0:
+        phase("flash_local", flash_local)
+    else:
+        phase("flash_local", lambda: None)
+    for name, fn in (("serve", serve), ("train", train), ("pipe", pipe),
+                     ("moe", moe), ("elastic", elastic)):
+        phase(name, fn)
+        torch.cuda.empty_cache()
+    Path(f"{out_path}.{rank}").write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
+def lm_elastic_world_one(seed: int, ckpt_dir: Path):
+    """17e's third layout: the checkpoint the four ranks saved, restored
+    onto a (1, 1) mesh of a world of one (NCCL) and whole: array-equal to
+    the saved leaves."""
+    import torch
+
+    from repro_torch.configs import lm as lm_configs
+    from repro_torch.distributed.collectives import release_world
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.sharding import lm_rules
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train.optimizer import named_leaves
+
+    saved = torch.load(ckpt_dir / "saved.pt")
+    ecfg = lm_configs.reduced_lm("qwen2-1.5b")
+    mesh = make_host_mesh((1, 1), device="cuda")
+    ps = tr.param_shardings(ecfg, lm_rules(mesh))
+    _, tree, _ = ck.restore(str(ckpt_dir), 1, device="cuda", shardings=[
+        ps, {"m": ps, "v": ps, "count": None}])
+    _, plain, _ = ck.restore(str(ckpt_dir), 1, device="cuda")
+    ok = all(torch.equal(a.to_local().cpu() if hasattr(a, "to_local")
+                         else a.cpu(), s) and torch.equal(b.cpu(), s)
+             for (_, a), (_, b), s in zip(named_leaves(tree),
+                                          named_leaves(plain), saved))
+    release_world()
+    return ok
+
+
+def lm_shard_phase(seed: int, out_dir: Path):
+    """Phase 17: LM sharding (17a world one over NCCL; the unsharded
+    references; 17b-e in four spawned gloo ranks on the one card: the
+    redistribute matrix, serving, training, the pipeline, the MoE layer,
+    the elastic restore; then 17e's world-one restore)."""
+    import shutil
+
+    import torch
+
+    t = time.perf_counter()
+    out = {"world_one": lm_world_one_phase(seed)}
+    ref_path = out_dir / "lm_shard_ref.pt"
+    out["reference"] = lm_shard_reference(seed, ref_path)
+    want = torch.load(ref_path)
+    ckpt = out_dir / "lm_shard_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt.mkdir(parents=True)
+    out_path = out_dir / "chip_smoke_lm_shard.json"
+    wall = run_ranks(_lm_rank, out_path, (seed, str(ref_path), str(ckpt)),
+                     timeout_s=600)
+    ranks = [json.loads(Path(f"{out_path}.{r}").read_text())
+             for r in range(SHARD_RANKS)]
+    out["ranks_wall_s"] = wall
+    out["elastic_world_one"] = lm_elastic_world_one(seed, ckpt)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ref_path.unlink()
+    head = ranks[0]
+    out.update({k: head[k] for k in ("matrix", "flash_local", "serve",
+                                     "train", "pipe", "moe", "elastic")})
+    out["rank_seconds"] = {k: [r[f"{k}_s"] for r in ranks]
+                           for k in ("serve", "train", "pipe", "moe",
+                                     "elastic")}
+    log(f"[lm shard] 17b gloo on CUDA tensors, four ranks: "
+        f"{[r['matrix'] for r in ranks]}")
+    fl = head["flash_local"]
+    log(f"[lm shard] 17b flash_fwd at the local heads {fl['shape']} over "
+        f"{fl['kv']} KV head: {fl['ms']:.4f} ms, max abs err "
+        f"{fl['max_abs_err']:.3e}")
+    fails = [f"rank {r['rank']} matrix {r['matrix']}" for r in ranks
+             if set(r["matrix"].values()) - {"native", "staged"}]
+    # training against the unsharded steps
+    for r in ranks:
+        for i, (s, w) in enumerate(zip(r["train"]["steps"], want["train"])):
+            lr = abs(s["loss"] - w["loss"]) / abs(w["loss"])
+            nr = abs(s["grad_norm"] - w["grad_norm"]) / w["grad_norm"]
+            if not (lr <= MICRO_RTOL and nr <= MICRO_NORM_RTOL):
+                fails.append(f"rank {r['rank']} step {i}: loss rel {lr}, "
+                             f"grad_norm rel {nr}")
+    st = head["train"]["steps"]
+    log(f"[lm shard] 17b train (data 2, model 2), {lm_shard_cfg().name} at "
+        f"{LM_SHARD_LAYERS} layers, B {LM_SHARD_BATCH}, S {LM_SHARD_SEQ}: "
+        + "; ".join(f"step {i + 1} {s['seconds']:.2f} s loss {s['loss']!r} "
+                    f"(unsharded {w['loss']!r}) grad_norm {s['grad_norm']!r} "
+                    f"(unsharded {w['grad_norm']!r})"
+                    for i, (s, w) in enumerate(zip(st, want["train"])))
+        + f"; peak {head['train']['peak_bytes'] / 2**30:.2f} GiB a rank; "
+        f"bytes a rank in a step {head['train']['census_step']}")
+    sv = head["serve"]
+    log(f"[lm shard] 17b serve: prefill launches {sv['launches']}, logits "
+        f"rel max {max(max(r['serve']['logits_rel']) for r in ranks):.3e} "
+        f"(tolerance {LOGIT_RTOL}); caches {sv['cache_placements']}; "
+        f"prefill bytes {sv['prefill_census']}")
+    for r in ranks:
+        if max(r["serve"]["logits_rel"]) > LOGIT_RTOL:
+            fails.append(f"rank {r['rank']} logits {r['serve']['logits_rel']}")
+        if r["serve"]["launches"].get("flash_fwd") != LM_SHARD_LAYERS:
+            fails.append(f"rank {r['rank']} prefill launches "
+                         f"{r['serve']['launches']}")
+    pw = want["train"][0]
+    for r in ranks:
+        p = r["pipe"]
+        lr = abs(p["loss"] - pw["loss"]) / abs(pw["loss"])
+        nr = abs(p["grad_norm"] - pw["grad_norm"]) / pw["grad_norm"]
+        if not (lr <= MICRO_RTOL and nr <= MICRO_NORM_RTOL):
+            fails.append(f"rank {r['rank']} pipeline loss rel {lr}, "
+                         f"grad_norm rel {nr}")
+    log(f"[lm shard] 17c pipeline (pod 2, model 2), {PIPE_MICRO} "
+        f"microbatches: loss {head['pipe']['loss']!r} vs {pw['loss']!r}, "
+        f"grad_norm {head['pipe']['grad_norm']!r} vs {pw['grad_norm']!r}; "
+        f"bytes {head['pipe']['census']}")
+    for r in ranks:
+        m = r["moe"]
+        if not (m["routes_equal"] and m["y_rel"] <= MOE_RTOL):
+            fails.append(f"rank {r['rank']} moe {m}")
+    log(f"[lm shard] 17d mixtral-8x22b MoE layer, {MOE_SHARD_GROUPS} groups "
+        f"of {MOE_SHARD_TOKENS} tokens over data 2, EP over data, TP over "
+        f"model: routes equal {[r['moe']['routes_equal'] for r in ranks]}, "
+        f"y rel {[round(r['moe']['y_rel'], 5) for r in ranks]} (tolerance "
+        f"{MOE_RTOL}); dropped per group "
+        f"{sorted({(r['moe']['group'], r['moe']['dropped']) for r in ranks})}"
+        f" of {head['moe']['entries']}; placements "
+        f"{head['moe']['placements']}; bytes {head['moe']['census']}")
+    for r in ranks:
+        e = r["elastic"]
+        if not (e["same_equal"] and e["pod_equal"] and e["same_placed"]
+                and e["pod_placed"] and e["resumed_loss"] == e["loss"]):
+            fails.append(f"rank {r['rank']} elastic {e}")
+    if not out["elastic_world_one"]:
+        fails.append("17e world-one restore differs")
+    e = head["elastic"]
+    log(f"[lm shard] 17e elastic: save {e['save_s']:.2f} s, restore same "
+        f"mesh {e['same_restore_s']:.2f} s, (pod 2, model 2) "
+        f"{e['pod_restore_s']:.2f} s, world one equal "
+        f"{out['elastic_world_one']}; resumed loss {e['resumed_loss']!r} vs "
+        f"uninterrupted {e['loss']!r}")
+    out["seconds"] = time.perf_counter() - t
+    log(f"[lm shard] phase 17 in {out['seconds']:.1f} s (four ranks "
+        f"{wall:.1f} s: {out['rank_seconds']})")
+    if fails:
+        raise AssertionError("phase 17: " + "; ".join(fails))
+    out["launches"] = sv["launches"]
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--side", type=int, default=96)
@@ -4091,7 +4845,13 @@ def main(argv=None) -> int:
     out_dir = OUT_DIR
     out_dir.mkdir(parents=True, exist_ok=True)
     report = {"device": torch.cuda.get_device_name(0),
-              "torch": torch.__version__, "cuda": torch.version.cuda}
+              "torch": torch.__version__, "cuda": torch.version.cuda,
+              "phase_end_s": {}}
+
+    def lap(phase: int):
+        """Keeps and logs the run's seconds at the end of ``phase``."""
+        at = report["phase_end_s"][str(phase)] = time.perf_counter() - t_start
+        log(f"[time] phase {phase} ends at {at:.1f} s")
 
     # -- 1. build ------------------------------------------------------------
     t = time.perf_counter()
@@ -4198,6 +4958,7 @@ def main(argv=None) -> int:
                            irls_s=plain.timings["irls"])
     del prob, plain
     torch.cuda.empty_cache()
+    lap(5)
 
     # -- 6. two-level rounding at reduced sides -------------------------------
     small = {}
@@ -4224,6 +4985,7 @@ def main(argv=None) -> int:
                            reference_kind=what, rel=rel,
                            contour=cut_k.meta["coarse_n"], seconds=t_k)
     report["two_level"] = small
+    lap(6)
 
     # -- 7. edge_reweight alone at the COO shapes of both serving tenants ---
     t = time.perf_counter()
@@ -4248,10 +5010,12 @@ def main(argv=None) -> int:
                           args.seed)
     torch.cuda.empty_cache()
     report["serve"] = serve
+    lap(8)
 
     # -- 9. the batched ELL path ---------------------------------------------
     report["batched_ell"] = batched_ell_phase(args.ell_side, 4, args.seed)
     torch.cuda.empty_cache()
+    lap(9)
 
     # -- 10. LM serving ----------------------------------------------------------
     from repro_torch.configs import lm as lm_configs
@@ -4261,6 +5025,7 @@ def main(argv=None) -> int:
     kern["flash_fwd"] = flash_fwd_alone(lm_cfg, LM_BATCH, LM_SEQ, args.seed)
     report["lm"] = lm_phase(lm_cfg, LM_BATCH, LM_SEQ, LM_GEN, args.seed)
     torch.cuda.empty_cache()
+    lap(10)
 
     # -- 11. delta staging, presolve and the CLIs ------------------------------
     report["delta_host"] = delta_host_phase(inst, labels, n_blocks, cfg,
@@ -4272,7 +5037,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     report["presolve"] = presolve_phase(args.seed)
     torch.cuda.empty_cache()
-    report["cli"] = cli_phase(out_dir)
+    clis = finish_clis(start_clis(cli_runs(out_dir), out_dir))
+    report["cli"] = cli_phase(clis, out_dir)
+    lap(11)
 
     # -- 12. cut trees --------------------------------------------------------
     t = time.perf_counter()
@@ -4282,17 +5049,22 @@ def main(argv=None) -> int:
     report["cuttree_exact"], ctx = cuttree_exact_phase(EXACT_SIDE,
                                                        args.seed)
     report["cuttree_service"] = cuttree_service_phase(
-        ctx, args.seed, report["cuttree"]["sink"], out_dir)
+        ctx, args.seed, report["cuttree"]["sink"], out_dir,
+        clis["cut_tree"])
     report["cuttree_s"] = time.perf_counter() - t
     log(f"[cuttree] phase 12 in {report['cuttree_s']:.1f} s")
     torch.cuda.empty_cache()
+    lap(12)
 
     # -- 13. the sharded solver ------------------------------------------------
     report["sharded"] = sharded_phase(inst, labels, cfg, cut.cut_value,
-                                      args.seed, out_dir)
+                                      args.seed, out_dir,
+                                      clis["solve_sharded"])
+    lap(13)
     # -- 14. MoE serving ------------------------------------------------------
     report["moe"] = moe_phase(args.seed)
     torch.cuda.empty_cache()
+    lap(14)
 
     # -- 15. the sharded server and the perf gate --------------------------------
     import warnings
@@ -4312,9 +5084,16 @@ def main(argv=None) -> int:
                                      report["sharded_serve"], out_dir)
     report["phase15_s"] = time.perf_counter() - t
     log(f"[phase 15] {report['phase15_s']:.1f} s")
+    lap(15)
 
     # -- 16. LM training ----------------------------------------------------------
     report["train"] = train_phase(args.seed, out_dir)
+    torch.cuda.empty_cache()
+    lap(16)
+
+    # -- 17. LM sharding ------------------------------------------------------------
+    report["lm_shard"] = lm_shard_phase(args.seed, out_dir)
+    lap(17)
 
     for route in SHARD_ROUTES:
         report["sharded_" + route] = {
@@ -4331,7 +5110,7 @@ def main(argv=None) -> int:
                        ("sharded_halo_fused", "fused_ell_sweep"),
                        ("sharded_halo_unfused", "edge_reweight"),
                        ("sharded_psum", "edge_reweight"),
-                       ("moe", "flash_fwd"),
+                       ("moe", "flash_fwd"), ("lm_shard", "flash_fwd"),
                        ("sharded_serve", "fused_ell_sweep"),
                        ("sharded_serve4", "edge_reweight"),
                        ("perf", "ell_spmv"), ("perf", "fused_ell_sweep"),
@@ -4352,7 +5131,8 @@ def main(argv=None) -> int:
                      "sharded_serve": report["sharded_serve"]["launches"],
                      "sharded_serve4": report["sharded_serve4"]["launches"],
                      "perf": report["perf"]["launches"],
-                     "train": report["train"]["launches"]}
+                     "train": report["train"]["launches"],
+                     "lm_shard": report["lm_shard"]["launches"]}
     for name in KERNELS:
         if path_launches[LAUNCH_PATH[name]][name] == 0:
             raise AssertionError(f"{name} was not launched on its path")

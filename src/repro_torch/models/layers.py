@@ -14,7 +14,9 @@ only, as in the reference.  The JAX package's ``lax.map`` and ``lax.scan``
 over chunks are Python loops here.
 
 The MoE layers (``moe_layer``, ``moe_layer_grouped``, ``moe_aux_loss``)
-keep the reference's capacity arithmetic and order of work.  Their routes
+keep the reference's capacity arithmetic and order of work; with ``rules``
+on a mesh they run on each rank's tokens (``moe_sharded``: EP over the data
+axes by an all-to-all where E divides them, TP over d_ff).  Their routes
 come from ``route_top_k``, which breaks ties between equal gates toward the
 lower expert index, as ``lax.top_k`` does (``torch.topk`` leaves the order
 of equal values undefined, and bf16 router logits tie often).
@@ -315,21 +317,16 @@ class MoERoutes(NamedTuple):
     capacity: int           # C, slots per expert
 
 
-def moe_routes(x: torch.Tensor, router: torch.Tensor, top_k: int,
-               capacity_factor: float = 1.25) -> MoERoutes:
-    """The routes of x [..., T, D]: router softmax in float32 over ``x @
-    router`` (in x's dtype), the renormalized top-k (``route_top_k``), then
-    each (token, choice)'s rank among its expert's entries in token-major
-    order, by a stable sort of the expert ids and ``searchsorted`` starts;
-    entries at rank ≥ C are dropped (GShard semantics)."""
-    T = x.shape[-2]
-    E = router.shape[1]
-    C = int(capacity_factor * top_k * T / E)     # the reference's Python ints
-    C = max(8, -(-C // 8) * 8)
-    gates = torch.softmax((x @ router).float(), dim=-1)
-    top_gates, top_idx = route_top_k(gates, top_k)
-    top_gates = top_gates / top_gates.sum(dim=-1, keepdim=True).clamp_min(1e-9)
-    flat_e = top_idx.reshape(*top_idx.shape[:-2], -1)        # [..., T·k]
+def _capacity(T: int, E: int, top_k: int, capacity_factor: float) -> int:
+    """Slots per expert: the reference's Python ints, a multiple of 8."""
+    C = int(capacity_factor * top_k * T / E)
+    return max(8, -(-C // 8) * 8)
+
+
+def _ranked(flat_e: torch.Tensor, E: int, C: int):
+    """(keep, slot) of expert ids [..., N]: each entry's rank among its
+    expert's entries in index order, by a stable sort and ``searchsorted``
+    starts; entries at rank ≥ C are dropped."""
     order = torch.argsort(flat_e, dim=-1, stable=True)
     sorted_e = torch.gather(flat_e, -1, order)
     experts = torch.arange(E, dtype=flat_e.dtype, device=flat_e.device)
@@ -339,7 +336,29 @@ def moe_routes(x: torch.Tensor, router: torch.Tensor, top_k: int,
     rank = torch.empty_like(flat_e).scatter_(
         -1, order, pos - torch.gather(starts, -1, sorted_e))
     keep = rank < C
-    slot = flat_e * C + torch.where(keep, rank, 0)
+    return keep, flat_e * C + torch.where(keep, rank, 0)
+
+
+def _top_gates(x: torch.Tensor, router: torch.Tensor, top_k: int):
+    """Router softmax in float32 over ``x @ router`` (in x's dtype), the
+    top-k renormalized over the k."""
+    gates = torch.softmax((x @ router).float(), dim=-1)
+    top_gates, top_idx = route_top_k(gates, top_k)
+    return top_gates / top_gates.sum(dim=-1, keepdim=True).clamp_min(1e-9), \
+        top_idx
+
+
+def moe_routes(x: torch.Tensor, router: torch.Tensor, top_k: int,
+               capacity_factor: float = 1.25) -> MoERoutes:
+    """The routes of x [..., T, D]: router softmax in float32 over ``x @
+    router`` (in x's dtype), the renormalized top-k (``route_top_k``), then
+    each (token, choice)'s rank among its expert's entries in token-major
+    order, by a stable sort of the expert ids and ``searchsorted`` starts;
+    entries at rank ≥ C are dropped (GShard semantics)."""
+    E = router.shape[1]
+    C = _capacity(x.shape[-2], E, top_k, capacity_factor)
+    top_gates, top_idx = _top_gates(x, router, top_k)
+    keep, slot = _ranked(top_idx.reshape(*top_idx.shape[:-2], -1), E, C)
     return MoERoutes(top_gates, top_idx, keep, slot, C)
 
 
@@ -350,36 +369,58 @@ def _experts(xe: torch.Tensor, p: MoEParams) -> torch.Tensor:
     return torch.bmm(F.silu(h) * g, p.w2)
 
 
+def _dispatch(x: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
+              top_k: int, n_slots: int) -> torch.Tensor:
+    """x [T, D]'s kept (token, choice) entries in their slots of an
+    [n_slots, D] buffer of zeros.  Every kept slot receives exactly one
+    entry, so the reference's scatter-add is an indexed assignment here (no
+    atomics)."""
+    token = torch.arange(x.shape[0] * top_k, device=x.device) // top_k
+    xe = x.new_zeros((n_slots, x.shape[1]))
+    xe[slot[keep]] = x[token[keep]]
+    return xe
+
+
+def _combine(ye: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
+             gates: torch.Tensor, top_k: int) -> torch.Tensor:
+    """Each (token, choice)'s slot of ye [n_slots, D] times its gate (cast
+    to ye's dtype; 0 where dropped), the k choices summed: [T, D]."""
+    gathered = ye[slot]
+    gathered = gathered * (keep * gates.reshape(-1)).to(ye.dtype)[:, None]
+    return gathered.reshape(-1, top_k, ye.shape[1]).sum(dim=1)
+
+
 def moe_layer(x: torch.Tensor, p: MoEParams, top_k: int,
-              capacity_factor: float = 1.25) -> torch.Tensor:
+              capacity_factor: float = 1.25, rules=None) -> torch.Tensor:
     """Scatter-based token dispatch (no [T, E, C] one-hot).
 
-    x: [T, D] (tokens flattened), routed by ``moe_routes``.  Every kept
-    slot receives exactly one entry, so the reference's scatter-add into
-    zeros is an indexed assignment of the kept entries here (no atomics).
-    The gates are cast to x's dtype before the combine product, then the k
-    choices are summed."""
+    x: [T, D] (tokens flattened), routed by ``moe_routes``.  The gates are
+    cast to x's dtype before the combine product, then the k choices are
+    summed.  With ``rules`` on a mesh, x is this rank's tokens and p holds
+    DTensors: see ``moe_sharded``."""
+    if rules is not None and rules.mesh is not None:
+        return moe_sharded(x, p, top_k, capacity_factor, rules, grouped=False)
     T, D = x.shape
     E = p.router.shape[1]
     r = moe_routes(x, p.router, top_k, capacity_factor)
     C = r.capacity
-    token = torch.arange(T * top_k, device=x.device) // top_k
-    xe = x.new_zeros((E * C, D))
-    xe[r.slot[r.keep]] = x[token[r.keep]]
+    xe = _dispatch(x, r.slot, r.keep, top_k, E * C)
     ye = _experts(xe.view(E, C, D), p).reshape(E * C, D)
-    gathered = ye[r.slot]                                # [T·k, D]
-    gathered = gathered * (r.keep * r.gates.reshape(-1)).to(x.dtype)[:, None]
-    return gathered.reshape(T, top_k, D).sum(dim=1)
+    return _combine(ye, r.slot, r.keep, r.gates, top_k)
 
 
 def moe_layer_grouped(x: torch.Tensor, p: MoEParams, top_k: int,
                       capacity_factor: float = 1.25,
-                      n_groups: int = 1) -> torch.Tensor:
+                      n_groups: int = 1, rules=None) -> torch.Tensor:
     """Group-local MoE dispatch (GShard-style grouping): the T tokens split
     into ``n_groups`` groups, each routing into its own per-expert capacity
     buffers (C from the group's Tg tokens) against all E experts.
 
-    x: [T, D] with T divisible by n_groups."""
+    x: [T, D] with T divisible by n_groups.  With ``rules`` on a mesh, x is
+    this rank's group (the ``tokens`` axes' size is the group count) and p
+    holds DTensors: see ``moe_sharded``."""
+    if rules is not None and rules.mesh is not None:
+        return moe_sharded(x, p, top_k, capacity_factor, rules, grouped=True)
     T, D = x.shape
     E = p.router.shape[1]
     G = n_groups
@@ -388,25 +429,118 @@ def moe_layer_grouped(x: torch.Tensor, p: MoEParams, top_k: int,
     C = r.capacity
     group = torch.arange(G, device=x.device)[:, None]
     slot = (group * (E * C) + r.slot).reshape(-1)            # into [G·E·C]
-    token = (group * Tg + torch.arange(Tg * top_k, device=x.device) // top_k
-             ).reshape(-1)
     keep = r.keep.reshape(-1)
-    xe = x.new_zeros((G * E * C, D))
-    xe[slot[keep]] = x[token[keep]]
+    xe = _dispatch(x, slot, keep, top_k, G * E * C)
     # [G, E, C, D] → the experts over [E, G·C, D] → back
     xe = xe.view(G, E, C, D).transpose(0, 1).reshape(E, G * C, D)
     ye = _experts(xe, p).view(E, G, C, D).transpose(0, 1).reshape(G * E * C, D)
-    gathered = ye[slot]
-    gathered = gathered * (keep * r.gates.reshape(-1)).to(x.dtype)[:, None]
-    return gathered.reshape(T, top_k, D).sum(dim=1)
+    return _combine(ye, slot, keep, r.gates, top_k)
+
+
+def moe_sharded(x: torch.Tensor, p: MoEParams, top_k: int,
+                capacity_factor: float, rules, grouped: bool,
+                stored=None, reduce_model: bool = True) -> torch.Tensor:
+    """One MoE layer on this rank's tokens, over the ranks of
+    ``rules.mesh``.
+
+    x: this rank's tokens [Tl, D] (its slice of the flattened B·S over the
+    ``tokens`` axes, the same on every rank of the model axes).  p: the
+    layer's weights, DTensors in ``param_shardings``' layout (or local blocks
+    with ``stored`` giving {weight: {mesh dim: tensor dim}}): experts over
+    the ``expert_ep`` (data) axes when E divides them (EP), else whole over
+    them (gathered, FSDP); d_ff over the model axes when it divides them
+    (TP).  Returns this rank's [Tl, D]: reduced over the model axes, or, with
+    ``reduce_model=False``, this rank's partial sum over them.
+
+    ``grouped``: each rank's tokens are one group of ``moe_layer_grouped``
+    (C from Tl); with EP the groups' slots reach the experts' ranks by an
+    all-to-all over the data axes and return by the reverse one.  Else the
+    routes are global as in ``moe_layer`` (C from T = Tl · ranks; each
+    entry's rank among all tokens' entries, from the all-gathered expert
+    ids): with EP the rank's slots are summed into the experts' ranks by a
+    reduce-scatter and the outputs all-gathered; without, summed on every
+    rank.  The combine of the rank's own entries runs on the TP partial
+    outputs, so the model axes reduce [Tl, D] once."""
+    from ..distributed import collectives as C
+    from .sharding import local_block, stored_dims
+
+    mesh = rules.mesh
+    data = C._active(mesh, rules.axes("tokens"))
+    model = C._active(mesh, rules.axes("d_ff"))
+    if stored is None:
+        stored = {k: stored_dims(getattr(p, k)) for k in MoEParams._fields}
+    p = MoEParams(*[t.to_local() if hasattr(t, "to_local") else t for t in p])
+    ep = tuple(a for a in data if stored["w1"].get(a) == 0)
+    tp = tuple(a for a in model if stored["w1"].get(a) == 2)
+    split = {a: True for a in data + tp}
+    router = local_block(p.router, mesh, {}, {a: True for a in data},
+                         stored["router"])
+    E = router.shape[1]
+    w = MoEParams(router, *(
+        local_block(getattr(p, k), mesh,
+                    {**{a: 0 for a in ep}, **{a: d for a in tp}}, split,
+                    stored[k])
+        for k, d in (("w1", 2), ("w3", 2), ("w2", 1))))
+    D = x.shape[1]
+    n_ep = C.mesh_size(mesh, ep)
+    if grouped:
+        r = moe_routes(x, router, top_k, capacity_factor)
+        cap, keep, slot, gates = r.capacity, r.keep, r.slot, r.gates
+        xe = _dispatch(x, slot, keep, top_k, E * cap).view(E, cap, D)
+        if ep:          # [E, C, D] → experts E/n_ep of each group's slots
+            xe = C.all_to_all(xe, mesh, ep)
+            xe = xe.view(n_ep, E // n_ep, cap, D).transpose(0, 1).reshape(
+                E // n_ep, n_ep * cap, D)
+    else:
+        n = C.mesh_size(mesh, data)
+        cap = _capacity(x.shape[0] * n, E, top_k, capacity_factor)
+        gates, top_idx = _top_gates(x, router, top_k)
+        flat = C.gather(top_idx.reshape(-1), mesh, data, 0, reduce_grad=False)
+        keep_all, slot_all = _ranked(flat, E, cap)
+        i0 = C.mesh_coord(mesh, data) * top_idx.numel()
+        keep = keep_all[i0:i0 + top_idx.numel()]
+        slot = slot_all[i0:i0 + top_idx.numel()]
+        xe = _dispatch(x, slot, keep, top_k, E * cap).view(E, cap, D)
+        if ep:
+            xe = C.reduce_scatter(xe, mesh, ep, 0)
+        else:
+            xe = C.copy(C.reduce(xe, mesh, data), mesh, data)
+    ye = _experts(C.copy(xe, mesh, tp), w)          # partial over tp
+    if grouped and ep:
+        ye = ye.view(E // n_ep, n_ep, cap, D).transpose(0, 1).reshape(
+            E, cap, D)
+        ye = C.all_to_all(ye, mesh, ep)
+    elif ep:
+        ye = C.gather(ye, mesh, ep, 0, reduce_grad=True)
+    y = _combine(ye.reshape(E * cap, D), slot, keep, C.copy(gates, mesh, tp),
+                 top_k)
+    return C.reduce(y, mesh, tp) if reduce_model else y
 
 
 def moe_aux_loss(x: torch.Tensor, router: torch.Tensor,
-                 top_k: int) -> torch.Tensor:
-    """Switch/GShard load-balance auxiliary loss (float32 scalar)."""
+                 top_k: int, rules=None) -> torch.Tensor:
+    """Switch/GShard load-balance auxiliary loss (float32 scalar).  With
+    ``rules`` on a mesh, x is this rank's tokens and the means run over
+    every rank's tokens of the ``tokens`` axes (router: a DTensor, or the
+    whole matrix as this rank's work takes it, ``local_block``'s)."""
     E = router.shape[1]
+    if rules is None or rules.mesh is None:
+        gates = torch.softmax((x @ router).float(), dim=-1)
+        _, top_idx = route_top_k(gates, top_k)
+        me = gates.mean(dim=0)                           # mean gate per expert
+        ce = F.one_hot(top_idx[:, 0], E).float().mean(dim=0)  # top-1 load
+        return E * (me * ce).sum()
+    from ..distributed import collectives as C
+    from .sharding import local_block
+
+    mesh = rules.mesh
+    data = C._active(mesh, rules.axes("tokens"))
+    if hasattr(router, "to_local"):
+        router = local_block(router, mesh, {}, {a: True for a in data})
+    T = x.shape[0] * C.mesh_size(mesh, data)
     gates = torch.softmax((x @ router).float(), dim=-1)
     _, top_idx = route_top_k(gates, top_k)
-    me = gates.mean(dim=0)                               # mean gate per expert
-    ce = F.one_hot(top_idx[:, 0], E).float().mean(dim=0)  # top-1 load
+    me = C.reduce(gates.sum(dim=0), mesh, data) / T
+    ce = C.reduce(F.one_hot(top_idx[:, 0], E).float().sum(dim=0), mesh,
+                  data) / T
     return E * (me * ce).sum()

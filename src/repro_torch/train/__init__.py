@@ -1,4 +1,4 @@
 """Training of the LM family (PyTorch): AdamW by hand, the train step with
-microbatch accumulation, checkpoints in the reference's format, the
-fault-tolerant controller.  The pipeline schedule (``train/pipeline.py``)
-goes with the sharding rules: ROADMAP queue 1, item 7, "Sharding"."""
+microbatch accumulation, checkpoints in the reference's format (the elastic
+restore onto any mesh), the fault-tolerant controller, and the GPipe
+pipeline over the pod axis (``train/pipeline.py``)."""

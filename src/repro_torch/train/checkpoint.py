@@ -16,9 +16,15 @@ leaves as the same raw records and reads ``|V2`` leaves named
 
 ``AsyncCheckpointer.save`` copies every leaf to the host before it
 returns: the trainer updates its tensors in place, so a view or a
-non-blocking copy would be overwritten by the next step.  The elastic
-restore onto another layout (``restore(shardings=…)``) goes with the
-sharding rules: ROADMAP queue 1, item 7, "Sharding".
+non-blocking copy would be overwritten by the next step.
+
+Sharded trees (DTensor leaves): every rank calls ``save`` (each leaf is
+all-gathered whole, in ``named_leaves`` order), rank 0 writes, and the
+synchronous ``save`` ends on a barrier, so the file holds the reference's
+full leaves and restores on any mesh or none.  ``restore(shardings=…)`` is
+the elastic re-shard: the TARGET mesh decides placement, each leaf comes
+back as a DTensor of the target's mesh and placements (every rank reads the
+file and keeps its own blocks).
 """
 from __future__ import annotations
 
@@ -30,6 +36,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
+
+from ..models.sharding import whole
 
 
 def named_leaves(tree, prefix: str = "") -> List[Tuple[str, Any]]:
@@ -83,7 +93,9 @@ def _to_host(x) -> Tuple[np.ndarray, str]:
     """(a host copy of the leaf as numpy, its dtype's name).  A tensor is
     copied (``to("cpu", copy=True)``, synchronous: never a view of a CPU
     tensor the trainer updates in place); bf16 becomes raw 2-byte
-    records."""
+    records.  A DTensor is all-gathered whole first."""
+    if isinstance(x, DTensor):
+        x = whole(x.detach())
     if isinstance(x, torch.Tensor):
         t = x.detach().to("cpu", copy=True)
         name = str(t.dtype).removeprefix("torch.")
@@ -134,15 +146,37 @@ def _host_snapshot(step: int, tree, extra: Optional[Dict]):
     return host, manifest
 
 
+def _sharded(tree) -> bool:
+    return any(isinstance(v, DTensor) for _, v in named_leaves(tree))
+
+
+def _writes(tree) -> bool:
+    """Whether this rank writes ``tree``'s checkpoint: rank 0 of a sharded
+    tree's ranks, any rank for a tree it holds alone."""
+    return not (_sharded(tree) and dist.is_initialized()
+                and dist.get_rank() != 0)
+
+
 def save(path: str, step: int, tree, extra: Optional[Dict] = None) -> str:
-    """Atomic synchronous save.  Returns the checkpoint file path."""
+    """Atomic synchronous save.  Returns the checkpoint file path.  A
+    sharded tree: every rank calls it, rank 0 writes, all return once the
+    file is in place."""
     os.makedirs(path, exist_ok=True)
     host, manifest = _host_snapshot(step, tree, extra)
-    return _write(path, step, host, manifest)
+    if not _writes(tree):
+        dist.barrier()
+        return os.path.join(path, f"ckpt_{step:08d}.npz")
+    out = _write(path, step, host, manifest)
+    if _sharded(tree) and dist.is_initialized():
+        dist.barrier()
+    return out
 
 
 class AsyncCheckpointer:
-    """Background-thread checkpointing; at most one write in flight."""
+    """Background-thread checkpointing; at most one write in flight.  A
+    sharded tree is gathered on every rank before ``save`` returns and
+    written by rank 0's thread alone (other ranks read it after ``wait``
+    and a barrier of their own)."""
 
     def __init__(self, path: str):
         self.path = path
@@ -154,6 +188,9 @@ class AsyncCheckpointer:
         # the host copy is taken BEFORE returning: the next step updates
         # the tensors in place
         host, manifest = _host_snapshot(step, tree, extra)
+        if not _writes(tree):
+            self.last_saved = os.path.join(self.path, f"ckpt_{step:08d}.npz")
+            return
 
         def work():
             os.makedirs(self.path, exist_ok=True)
@@ -176,17 +213,38 @@ def latest_step(path: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
+class _Stored:
+    """A leaf as read from the file: its array and its manifest dtype."""
+
+    def __init__(self, array: np.ndarray, dtype: str):
+        self.array, self.dtype = array, dtype
+
+
+def _place(tree, shardings, device):
+    """Each leaf of ``tree`` (numpy) on ``device``, as a DTensor where its
+    sharding ``(mesh, placements)`` is given."""
+    if isinstance(tree, dict):
+        return {k: _place(v, shardings[k] if shardings is not None else None,
+                          device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_place(v, shardings[i] if shardings is not None
+                                 else None, device)
+                          for i, v in enumerate(tree))
+    t = to_tensor(tree.array, device, tree.dtype)
+    if shardings is None:
+        return t
+    mesh, placements = shardings
+    return distribute_tensor(t, mesh, placements, src_data_rank=None)
+
+
 def restore(path: str, step: Optional[int] = None, shardings=None,
             device="cuda") -> Tuple[int, Any, Dict]:
     """Load a checkpoint (the latest when ``step`` is None) as (step, tree
     of tensors on ``device``, the card unless the caller names another,
-    extra).  ``shardings`` (the reference's
-    elastic re-shard onto another mesh) is not ported yet."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=...): the elastic re-shard goes with the "
-            "sharding rules, not ported yet (ROADMAP.md queue 1, item 7, "
-            "\"Sharding\")")
+    extra).  ``shardings``: a tree matching the restored one of ``(mesh,
+    placements)`` (``transformer.param_shardings``) or None per leaf: the
+    elastic re-shard, each such leaf a DTensor of that mesh and placements,
+    whatever layout wrote the file."""
     if step is None:
         step = latest_step(path)
         if step is None:
@@ -195,9 +253,9 @@ def restore(path: str, step: Optional[int] = None, shardings=None,
     with open(ckpt + ".manifest.json") as f:
         manifest = json.load(f)
     with np.load(ckpt) as data:
-        flat = {k: to_tensor(data[k], device, manifest["dtypes"][k])
+        flat = {k: _Stored(data[k], manifest["dtypes"][k])
                 for k in data.files}
-    tree = _unflatten(flat, manifest["structure"])
+    tree = _place(_unflatten(flat, manifest["structure"]), shardings, device)
     return manifest["step"], tree, manifest.get("extra", {})
 
 

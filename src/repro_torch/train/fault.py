@@ -14,8 +14,7 @@ module implements, sized for 1000+ nodes):
   journal, (b) after ``max_stragglers`` consecutive slow steps requests a
   restart — on a real cluster the launcher would re-schedule minus the slow
   pod, then the ELASTIC restore (checkpoint.py) re-shards onto the smaller
-  mesh; in the port that restore goes with the sharding rules (ROADMAP
-  queue 1, item 7, "Sharding").
+  mesh (``resume_or_init(shardings=...)``).
 * **step journal** — JSON-lines audit trail (step, loss, wall time,
   events) for postmortems; replayed on resume to restore telemetry.
 
@@ -125,7 +124,8 @@ class TrainController:
                        device="cuda"):
         """Latest checkpoint if present (its tensors on ``device``: the
         card unless the caller names another, where ``init_fn``'s state
-        lies), else init_fn()."""
+        lies; with ``shardings``, DTensors of that layout: the elastic
+        restore), else init_fn()."""
         step = ckpt_lib.latest_step(self.ckpt_dir)
         if step is not None:
             step, tree, extra = ckpt_lib.restore(self.ckpt_dir, step, shardings,

@@ -11,7 +11,11 @@ each gradient's dtype before the multiply, and the moments are stored in
 device (no host sync).
 
 A tree is the reference's pytree: nested dicts (leaves in sorted key order,
-as ``jax.tree.leaves`` walks them), lists and tuples of tensors.  The
+as ``jax.tree.leaves`` walks them), lists and tuples of tensors.  Leaves
+may be DTensors (``models/transformer.shard_params``): the moments take
+each parameter's placements (the reference's ZeRO-sharded state), the
+update runs on each rank's local blocks, and the clip's global norm sums
+each leaf's squares over its shards, a replicated leaf counted once.  The
 error-feedback int8 compression (``compress_grads``) is the reference's
 ``_compress_ef``.  ``state_from_numpy`` carries the reference's parameters
 and AdamW state over.
@@ -23,7 +27,9 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
+from ..models.sharding import whole
 from ..models.transformer import as_torch_dtype, params_from_numpy
 from .checkpoint import named_leaves, to_tensor, tree_map
 
@@ -49,25 +55,31 @@ def init_state(cfg: AdamWConfig, tree) -> Dict:
     """Zero moments in ``moments_dtype`` shaped as the parameters' tree,
     the count (int32, 0-dim) on their device, and under ``compress_grads``
     a float32 residual per leaf."""
-    zeros = lambda p: torch.zeros(p.shape, dtype=cfg.moments_dtype,
-                                  device=p.device)
+    zeros = lambda p: torch.zeros_like(p, dtype=cfg.moments_dtype)
     dev = named_leaves(tree)[0][1].device
     state = {"m": tree_map(zeros, tree), "v": tree_map(zeros, tree),
              "count": torch.zeros((), dtype=torch.int32, device=dev)}
     if cfg.compress_grads:
         state["ef_residual"] = tree_map(
-            lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device), tree)
+            lambda p: torch.zeros_like(p, dtype=torch.float32), tree)
     return state
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local block (the tensor the DTensor holds: in-place
+    updates reach it), a plain tensor itself."""
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def _global_norm(tree) -> torch.Tensor:
     """√(Σ_leaves Σ x²) in float32, the leaves summed in ``named_leaves``
     order (sorted keys), as the reference's Python ``sum`` over
-    ``jax.tree.leaves``."""
+    ``jax.tree.leaves``.  A DTensor leaf's sum is reduced over the mesh
+    dims it is sharded on (its partial sums), not over those it is
+    replicated on."""
     total = None
     for _, x in named_leaves(tree):
-        s = x.float().square().sum()
+        s = whole(x.float().square().sum())
         total = s if total is None else total + s
     return torch.sqrt(total)
 
@@ -115,12 +127,14 @@ def apply_updates(cfg: AdamWConfig, params, grads, state):
 
         lr = lr_at(cfg, state["count"])
         metrics["lr"] = lr
+        ps, gs = [_local(p) for p in ps], [_local(g) for g in gs]
         b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, device=count.device),
                               count.float())
         b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, device=count.device),
                               count.float())
         for p, g, (_, m), (_, v) in zip(ps, gs, named_leaves(state["m"]),
                                         named_leaves(state["v"])):
+            m, v = _local(m), _local(v)
             g32 = g.float()
             m32 = m.float() * cfg.b1 + g32 * (1 - cfg.b1)
             v32 = v.float() * cfg.b2 + g32 * g32 * (1 - cfg.b2)

@@ -10,22 +10,34 @@ the parameters' dtype.  The gradients come from ``torch.autograd.grad``, so
 nothing accumulates in ``.grad``; the parameters' ``requires_grad`` is
 turned on for the step.  Metrics: ``loss``, ``grad_norm`` and ``lr`` as
 0-dim float32 tensors on the device.
+
+On sharded parameters (DTensors) the step is the same program on every
+rank: the gradients come back as DTensors of the parameters' layout, and
+a batch given as a DTensor over its rows is split into microbatches of
+each rank's local rows (the loss is a mean over the whole batch either
+way, so the rows' grouping into microbatches does not change it).
 """
 from __future__ import annotations
 
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from .optimizer import AdamWConfig, apply_updates, named_leaves
 
 
 def _split(x, n: int):
     """x's n microbatches along its first dim (the reference's reshape to
-    (n, b // n, ...)), as a list; a tree is split leaf by leaf."""
+    (n, b // n, ...)), as a list; a tree is split leaf by leaf, a DTensor
+    by its local rows."""
     if isinstance(x, dict):
         parts = {k: _split(v, n) for k, v in x.items()}
         return [{k: parts[k][i] for k in x} for i in range(n)]
+    if isinstance(x, DTensor):
+        return [DTensor.from_local(part, x.device_mesh, x.placements,
+                                   run_check=False)
+                for part in _split(x.to_local(), n)]
     b = x.shape[0]
     if b % n:
         raise ValueError(f"batch {b} does not split into {n} microbatches")
@@ -52,7 +64,7 @@ def build_train_step(loss_fn: Callable, opt_cfg: AdamWConfig,
             loss, grads = grads_of(params, leaves, batch)
         else:
             loss = None
-            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            acc = [torch.zeros_like(p, dtype=torch.float32)
                    for _, p in leaves]
             for mb in _split(batch, n_microbatches):
                 mb_loss, grads = grads_of(params, leaves, mb)

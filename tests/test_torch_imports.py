@@ -126,7 +126,8 @@ def test_port_sources_name_no_jax_or_repro():
                                      "from repro import")), (path, s)
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "kernel_times.py"])
+@pytest.mark.parametrize("script", ["chip_smoke.py", "kernel_times.py",
+                                    "phase_times.py"])
 def test_card_scripts_stand_alone_and_need_a_card(script):
     """The port's scripts at the repo's root import neither jax nor repro,
     and without a CUDA card they exit with a code other than 0 and print
@@ -169,3 +170,17 @@ def test_port_training_modules_stand_alone():
                      "repro_torch.configs.gemma3_27b",
                      "repro_torch.configs.llama4_maverick",
                      "repro_torch.configs.mixtral_8x22b"}
+
+
+def test_port_sharding_modules_stand_alone():
+    """The LM sharding (the rules, the mesh and the GPipe pipeline) imports
+    with ``jax`` blocked and brings in no ``repro`` module."""
+    probe = _PROBE.replace("print(len(names))", "print(' '.join(names))")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", probe], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    names = set(out.stdout.split())
+    assert names >= {"repro_torch.models.sharding",
+                     "repro_torch.launch.mesh",
+                     "repro_torch.train.pipeline"}

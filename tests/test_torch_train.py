@@ -2,8 +2,9 @@
 
 ``apply_updates`` against the reference's on the same parameters,
 gradients and state; the reference's ``tests/test_train_fault.py`` cases on
-the port (all but ``test_elastic_restore_reshards``, which goes with the
-sharding rules); three train steps of a reduced qwen2 from the same carried
+the port (``test_elastic_restore_reshards`` in gloo ranks and a world of
+one: ``test_restore_with_shardings_names_the_sharding_bullet``); three
+train steps of a reduced qwen2 from the same carried
 state and batches; checkpoints written by one package and restored by the
 other, bf16 included; ``launch.train`` in process.  Each tolerance states
 its reason."""
@@ -266,11 +267,108 @@ def test_async_checkpointer_snapshots_before_returning():
         assert tree["y"].dtype == torch.bfloat16 and torch.all(tree["y"] == 1.5)
 
 
+_ELASTIC_SAVE = """
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from repro_torch.configs import lm as lm_configs
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import transformer as tr
+from repro_torch.models.sharding import lm_rules, whole
+from repro_torch.train import checkpoint as ck
+from repro_torch.train.optimizer import named_leaves
+CK = CK_DIR
+cfg = lm_configs.reduced_lm("qwen2-1.5b")
+mesh = make_host_mesh((2, 2), ("data", "model"), device="cpu")
+params = tr.init_params(cfg, torch.Generator().manual_seed(0),
+                        device="cpu").tree()
+w = torch.arange(16.0).reshape(4, 4)
+b = torch.arange(8.0).to(torch.bfloat16)
+tree = {"params": tr.shard_params(params, tr.param_shardings(
+            cfg, lm_rules(mesh))),
+        "w": distribute_tensor(w, mesh, [Shard(0), Shard(1)],
+                               src_data_rank=None),
+        "b": distribute_tensor(b, mesh, [Replicate(), Shard(0)],
+                               src_data_rank=None),
+        "count": torch.tensor(3, dtype=torch.int32)}
+ck.save(CK, 7, tree)
+# onto (4, 1): the TARGET mesh decides placement
+mesh41 = make_host_mesh((4, 1), ("data", "model"), device="cpu")
+ps = tr.param_shardings(cfg, lm_rules(mesh41))
+step, got, _ = ck.restore(CK, device="cpu", shardings={
+    "params": ps, "w": (mesh41, [Shard(1), Replicate()]),
+    "b": (mesh41, [Shard(0), Replicate()]), "count": None})
+out = {"step": np.int64(step)}
+for (k, a), (_, e) in zip(named_leaves(got), named_leaves(tree)):
+    out["equal/" + k] = np.bool_(torch.equal(whole(a), whole(e)))
+    out["placed/" + k] = np.bool_(
+        getattr(a, "device_mesh", mesh41) is mesh41)
+out["w_local"] = got["w"].to_local().numpy()
+out["embed_placements"] = np.array(str(list(got["params"]["embed"].placements)))
+out["want_embed"] = str(list(ps["embed"][1]))
+if RANK == 0:
+    np.savez(OUT, **out)
+"""
+
+_ELASTIC_ONE = """
+import torch
+from torch.distributed.tensor import Shard
+from repro_torch.configs import lm as lm_configs
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import transformer as tr
+from repro_torch.models.sharding import lm_rules
+from repro_torch.train import checkpoint as ck
+cfg = lm_configs.reduced_lm("qwen2-1.5b")
+mesh = make_host_mesh((1, 1), device="cpu")
+sh = {"w": (mesh, [Shard(0), Shard(1)])}
+step, got, _ = ck.restore(CK_DIR, device="cpu", shardings={
+    "params": tr.param_shardings(cfg, lm_rules(mesh)), "count": None,
+    "w": (mesh, [Shard(0), Shard(1)]), "b": None})
+np.savez(OUT, step=np.int64(step), w=got["w"].to_local().numpy(),
+         embed=got["params"]["embed"].to_local().numpy(),
+         placed=np.bool_(got["w"].device_mesh is mesh
+                         and list(got["w"].placements) == sh["w"][1]),
+         b=got["b"].float().numpy())
+"""
+
+
 def test_restore_with_shardings_names_the_sharding_bullet():
+    """The elastic restore (``restore(shardings=...)``, which raised naming
+    the sharding bullet before it was ported): a state saved from a (data 2,
+    model 2) mesh by four gloo ranks (DTensor leaves gathered whole, rank 0
+    writing) restores onto a (4, 1) mesh of the same ranks and onto a (1, 1)
+    mesh of a world of one (the reference's
+    ``test_elastic_restore_reshards``): each leaf a DTensor of the target's
+    mesh and placements, array-equal to the saved one; the reference's
+    ``restore`` reads the same file."""
+    from tests._torch_ranks import Job
+
     with tempfile.TemporaryDirectory() as d:
-        ck.save(d, 1, {"w": torch.arange(4.0)})
-        with pytest.raises(NotImplementedError, match="Sharding"):
-            ck.restore(d, shardings={"w": None})
+        ckdir = os.path.join(d, "ck")
+        four = Job("save4", d, _ELASTIC_SAVE.replace("CK_DIR", repr(ckdir)),
+                   ranks=4).result()
+        one = Job("one", d, _ELASTIC_ONE.replace("CK_DIR", repr(ckdir))
+                  ).result()
+        assert int(four["step"]) == 7
+        equal = {k: bool(v) for k, v in four.items() if k.startswith("equal/")}
+        assert equal and all(equal.values()), equal
+        assert all(bool(v) for k, v in four.items() if k.startswith("placed/"))
+        assert str(four["embed_placements"]) == str(four["want_embed"])
+        # rank 0's block on (4, 1) with [Shard(1), Replicate()]: column 0
+        np.testing.assert_array_equal(four["w_local"],
+                                      np.arange(16.0).reshape(4, 4)[:, :1])
+        w = np.arange(16.0).reshape(4, 4)
+        assert int(one["step"]) == 7 and bool(one["placed"])
+        np.testing.assert_array_equal(one["w"], w)
+        np.testing.assert_array_equal(one["b"], np.arange(8.0))
+        step, ref, _ = jck.restore(ckdir)
+        assert step == 7
+        np.testing.assert_array_equal(np.asarray(ref["w"]), w)
+        # bf16 as the reference's own |V2 records, its bits the saved ones
+        assert ref["b"].dtype == np.dtype("V2")
+        np.testing.assert_array_equal(
+            _bits(ref["b"]), _bits(torch.arange(8.0).to(torch.bfloat16)))
+        np.testing.assert_array_equal(np.asarray(ref["params"]["embed"]),
+                                      one["embed"])
+        assert int(ref["count"]) == 3
 
 
 def test_resume_lands_where_init_fn_puts_the_state():
