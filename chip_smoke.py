@@ -138,9 +138,10 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
     d. ``launch.solve --family road --side 256 --irls 20`` (delta_two_level
        ≤ 1e-3) and ``launch.mincut_serve --warm --presolve --drift-sparsity
        0.05`` (every request completed) as subprocesses, their JSON read.
-       They run side by side with 12d's ``launch.cut_tree`` and 13c's
-       ``launch.solve --backend sharded`` (each phase checks its own), and
-       the run waits for all four before it goes on.
+       They run side by side with 12d's ``launch.cut_tree``, 13c's
+       ``launch.solve --backend sharded`` and 18c's two ``launch.train``
+       runs (each phase checks its own), and the run waits for all six
+       before it goes on.
 
 12. Cut trees, through ``edge_reweight`` (the cut-tree default config with
     ``use_pallas``: one launch per IRLS iteration of every ``solve_batch``
@@ -319,6 +320,34 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
        mesh (the next step's loss bit-equal to the uninterrupted run's),
        onto (pod 2, model 2) and, back in the main process, onto a world of
        one: every leaf array-equal to the saved one.
+
+18. GNN and recsys training (``models/gnn``, ``models/recsys``, the
+    fixed-order gathers and segment sums of ``models/layers``; no kernel
+    launches).
+    a. GCN, SchNet, DimeNet and MeshGraphNet at full width through
+       ``launch.train.build_gnn_training`` on the launcher's full_graph_sm
+       cell, then DimeNet and MeshGraphNet at minibatch_lg's padded shapes
+       (169,984 nodes, 168,960 edges, DimeNet's 1,048,576 triplets).  Each:
+       the loss and gradients finite; the train step twice from the same
+       state with PyTorch's defaults, bit-equal (loss, grad_norm,
+       parameters, moments); the loss lowered by that step (AdamW,
+       warm-up 1, no decay, lr 1e-4 cut to a first-order decrease of 0.1%
+       of the loss); on full_graph_sm the card's loss within rel 1e-4 of
+       the port's CPU loss on the same parameters and batch.  Logged: ms a
+       step, peak memory.
+    b. DIN on din()'s full tables (7.28 GB of float32 drawn on the card):
+       train_batch's B = 65,536 at S = 100, one step run twice from the
+       same seeded state bit-equal (an exact checksum of every parameter
+       and moment), five steps at lr 1e-2 lowering the batch's loss (ms a
+       step, peak memory); serve_p99's B = 512 through ``din_logits``, p50
+       and p99 over 50 calls, logits within 1e-4 of max |logit| of the
+       CPU's on compact tables (the batch's rows, ids renumbered);
+       retrieval_cand's one user against 1,000,000 candidates in chunks of
+       65,536 (seconds), 512 sampled scores within 2e-4 of ``din_logits``
+       on the tiled batch.
+    c. ``launch.train --arch gcn-cora --steps 20`` and ``--arch din
+       --reduced --steps 20``, started with phase 11's CLIs: exit 0 and
+       finite losses printed.
 
 TF32 is switched off for matmuls and cuDNN, so every float32 product is a
 full float32 product.  The last two lines of standard output are the
@@ -2022,11 +2051,18 @@ def presolve_phase(seed: int, side: int = ROAD_SIDE):
 
 
 def cli_runs(out_dir: Path) -> dict:
-    """The four CLIs that phases 11d, 12d and 13c hold, as ``start_clis``
-    takes them: they run side by side on the card in phase 11d, and each
-    phase checks its own."""
+    """The six CLIs that phases 11d, 12d, 13c and 18c hold, as
+    ``start_clis`` takes them: they run side by side on the card in phase
+    11d, and each phase checks its own."""
+    import shutil
+
     def json_out(name):
         return ["--json-out", str(out_dir / f"chip_smoke_{name}.json")]
+
+    def ckpt(name):                     # a fresh run: no checkpoint to resume
+        d = out_dir / f"chip_smoke_{name}_ckpt"
+        shutil.rmtree(d, ignore_errors=True)
+        return ["--ckpt-dir", str(d)]
 
     return {
         "solve": (["-m", "repro_torch.launch.solve", "--family", "road",
@@ -2041,7 +2077,12 @@ def cli_runs(out_dir: Path) -> dict:
         "solve_sharded": (["-m", "repro_torch.launch.solve", "--family",
                            "grid", "--side", "48", "--irls", "10",
                            "--backend", "sharded"]
-                          + json_out("solve_sharded"), 600)}
+                          + json_out("solve_sharded"), 600),
+        "train_gcn": (["-m", "repro_torch.launch.train", "--arch",
+                       "gcn-cora", "--steps", "20"] + ckpt("train_gcn"), 300),
+        "train_din": (["-m", "repro_torch.launch.train", "--arch", "din",
+                       "--reduced", "--steps", "20"] + ckpt("train_din"),
+                      300)}
 
 
 def cli_phase(clis: dict, out_dir: Path):
@@ -4809,6 +4850,412 @@ def lm_shard_phase(seed: int, out_dir: Path):
     return out
 
 
+# -- phase 18: GNN and recsys training on the card ------------------------------
+
+# 18a: the four GNNs at full width on the launcher's cell (full_graph_sm);
+# DimeNet and MeshGraphNet also at minibatch_lg's padded shapes (169,984
+# nodes, 168,960 edges; DimeNet's 1,048,576 triplets).  ogb_products is
+# not taken: its 123.7M triplets at h = 128 are 63 GB a tensor
+GNN_LARGE, GNN_LARGE_CELL = ("dimenet", "meshgraphnet"), "minibatch_lg"
+# the reference test's small step (warm-up 1, no decay) at lr 1e-4, or
+# less where a step of 1e-4 on every parameter overshoots: Adam's first
+# step moves each parameter by lr·sign(g), so its first-order change of the
+# loss is -lr·Σ|g|; the step is taken at lr = min(1e-4, 1e-3·loss/Σ|g|),
+# a first-order decrease of 0.1% of the loss at most (a single graph's
+# energy over 2,708 atoms moves by far more than that at 1e-4)
+GNN_STEP = dict(lr=1e-4, warmup_steps=1, weight_decay=0.0)
+GNN_DESCENT = 1e-3
+# 18b: DIN on din()'s full tables (100M item, 1M category and 100K tag
+# rows at d = 18: 7.28 GB of float32), the train_batch cell's B = 65,536
+# at S = 100, five AdamW steps at lr 1e-2 (the reference test's)
+DIN_TRAIN_B, DIN_STEPS = 65536, 5
+DIN_STEP = dict(lr=1e-2, warmup_steps=1)
+# serve_p99's B, timed over this many calls; retrieval_cand's candidates,
+# scored in chunks (at 1M × [100, 144] float32 one broadcast is 57.6 GB),
+# of which this many are held against din_logits
+DIN_SERVE_B, DIN_SERVE_CALLS = 512, 50
+DIN_CANDIDATES, DIN_CHUNK, DIN_CHECKED = 1_000_000, 65536, 512
+
+
+def tree_clone(tree):
+    from repro_torch.train.checkpoint import tree_map
+
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+def tree_same_bits(a, b) -> bool:
+    from repro_torch.train.checkpoint import named_leaves
+
+    la, lb = named_leaves(a), named_leaves(b)
+    return [k for k, _ in la] == [k for k, _ in lb] and all(
+        same_bits(x, y) for (_, x), (_, y) in zip(la, lb))
+
+
+def bits_checksum(tree) -> list:
+    """Each leaf's bits summed as int64 (in chunks of 2^26 entries): an
+    exact fingerprint of a state too large to keep twice on the card."""
+    import torch
+
+    from repro_torch.train.checkpoint import named_leaves
+
+    out = []
+    for _, t in named_leaves(tree):
+        flat = t.detach().reshape(-1)
+        bits = flat.view({8: torch.int64, 4: torch.int32,
+                          2: torch.int16, 1: torch.int8}[flat.element_size()])
+        total = torch.zeros((), dtype=torch.int64, device=t.device)
+        for i in range(0, bits.numel(), 1 << 26):
+            total += bits[i:i + (1 << 26)].sum(dtype=torch.int64)
+        out.append(int(total))
+    return out
+
+
+def gnn_case(label: str, arch: str, loss_fn, params, batch, on_cpu: bool):
+    """One 18a case: the loss and its gradients, finite; the train step
+    (AdamW at GNN_STEP, its lr cut to a first-order decrease of
+    GNN_DESCENT of the loss) twice from the same state with PyTorch's
+    defaults, bit-equal (loss, grad_norm, parameters, moments), and the
+    loss after it below the loss before; with ``on_cpu``, the loss within
+    rel 1e-4 of the port's CPU loss on the same parameters and batch."""
+    import math
+
+    import torch
+
+    from repro_torch.train.checkpoint import named_leaves, tree_map
+    from repro_torch.train.optimizer import AdamWConfig, init_state
+    from repro_torch.train.train_step import build_train_step
+
+    p = tree_clone(params)
+    leaves = [t.requires_grad_(True) for _, t in named_leaves(p)]
+    loss = loss_fn(p, batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    loss0 = float(loss.detach())
+    finite = math.isfinite(loss0) and all(
+        g is None or bool(torch.isfinite(g).all()) for g in grads)
+    l1 = float(sum(g.abs().sum() for g in grads if g is not None))
+    lr = min(GNN_STEP["lr"], GNN_DESCENT * loss0 / l1)
+    del p, leaves, loss, grads
+    opt = AdamWConfig(**dict(GNN_STEP, lr=lr))
+    step = build_train_step(loss_fn, opt)
+    state = init_state(opt, params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(2):
+        p, s = tree_clone(params), tree_clone(state)
+        t = time.perf_counter()
+        p, s, m = step(p, s, batch)
+        torch.cuda.synchronize()
+        runs.append((p, s, m, time.perf_counter() - t))
+    peak = torch.cuda.max_memory_allocated()
+    (p1, s1, m1, t1), (p2, s2, m2, t2) = runs
+    same = (same_bits(m1["loss"], m2["loss"])
+            and same_bits(m1["grad_norm"], m2["grad_norm"])
+            and tree_same_bits(p1, p2) and tree_same_bits(s1, s2))
+    gnorm = float(m1["grad_norm"])
+    with torch.no_grad():
+        loss1 = float(loss_fn(p1, batch))
+    out = dict(loss=loss0, grad_norm=gnorm, lr=lr, loss_after=loss1,
+               bit_equal=same, step_s=t2, first_step_s=t1, peak_bytes=peak)
+    msg = (f"[gnn] 18a {label}: loss {loss0!r} → {loss1!r} after one step "
+           f"at lr {lr:.3g}, grad_norm {gnorm:.4g}, two runs bit-equal "
+           f"{same}; step {t2 * 1e3:.1f} ms (first {t1 * 1e3:.1f} ms), peak "
+           f"{peak / 2**30:.2f} GiB")
+    if on_cpu:
+        cpu_params = tree_map(lambda t: t.detach().cpu(), params)
+        cpu_batch = {k: v.cpu() if torch.is_tensor(v) else v
+                     for k, v in batch.items()}
+        t = time.perf_counter()
+        with torch.no_grad():
+            cpu_loss = float(loss_fn(cpu_params, cpu_batch))
+        rel = abs(loss0 - cpu_loss) / abs(cpu_loss)
+        out.update(cpu_loss=cpu_loss, cpu_rel=rel,
+                   cpu_s=time.perf_counter() - t)
+        msg += f"; CPU loss {cpu_loss!r}, rel {rel:.2e} (tolerance 1e-4)"
+        if not rel <= 1e-4:
+            raise AssertionError(f"18a {label}: card loss {loss0} vs CPU "
+                                 f"{cpu_loss}: rel {rel}")
+    log(msg)
+    if not (finite and math.isfinite(gnorm)):
+        raise AssertionError(f"18a {label}: loss {loss0}, grad_norm {gnorm}, "
+                             f"gradients finite {finite}")
+    if not loss1 < loss0:
+        raise AssertionError(f"18a {label}: the step did not lower the loss "
+                             f"({loss0} → {loss1})")
+    if not same:
+        raise AssertionError(f"18a {label}: two runs of the step differ")
+    return out
+
+
+def gnn_phase(seed: int):
+    """Phase 18a: the four GNNs at full width through
+    ``launch.train.build_gnn_training`` on full_graph_sm (card vs CPU loss
+    held), then DimeNet and MeshGraphNet at minibatch_lg; no kernel
+    launches."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+
+    cases = [(arch, "full_graph_sm") for arch in
+             ("gcn-cora", "schnet", "dimenet", "meshgraphnet")]
+    cases += [(arch, GNN_LARGE_CELL) for arch in GNN_LARGE]
+    out = {}
+    ops.reset_launches()
+    for arch, cell in cases:
+        t = time.perf_counter()
+        cfg, params, loss_fn, batches = launch_train.build_gnn_training(
+            arch, False, seed, "cuda", cell=cell)
+        batch = next(batches)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        label = f"{arch} {cell}"
+        sizes = {k: tuple(v.shape) for k, v in batch.items()
+                 if k in ("edge_src", "node_mask", "tri_kj")}
+        log(f"[gnn] 18a {label}: {sizes}, made in {build_s:.2f} s")
+        out[label] = gnn_case(label, arch, loss_fn, params, batch,
+                              on_cpu=cell == "full_graph_sm")
+        out[label].update(build_s=build_s, shapes=sizes)
+        del params, batch, batches
+        torch.cuda.empty_cache()
+    out["launches"] = dict(ops.launches)
+    if out["launches"] != NO_LAUNCHES:
+        raise AssertionError(f"18a launched {out['launches']}")
+    return out
+
+
+def compact_din(params, hb: dict):
+    """The DIN parameters and batch ``hb`` (numpy, on the host) with each
+    table cut to the rows the batch reads and its ids renumbered into
+    them, on the CPU: the same arithmetic as the full tables without
+    copying them to the host."""
+    import numpy as np
+    import torch
+
+    out_p = {k: {"w": [t.detach().cpu() for t in params[k]["w"]],
+                 "b": [t.detach().cpu() for t in params[k]["b"]]}
+             for k in ("attn", "mlp")}
+    out_b = {"hist_mask": torch.from_numpy(hb["hist_mask"]),
+             "profile_mask": torch.from_numpy(hb["profile_mask"])}
+    for table, keys in (("item_table", ("hist_items", "target_item")),
+                        ("cate_table", ("hist_cates", "target_cate")),
+                        ("tag_table", ("profile_tags",))):
+        ids = np.concatenate([hb[k].ravel() for k in keys])
+        rows, inv = np.unique(ids, return_inverse=True)
+        dev = params[table].device
+        out_p[table] = params[table][torch.from_numpy(rows).to(dev)].cpu()
+        at = 0
+        for k in keys:
+            n = hb[k].size
+            out_b[k] = torch.from_numpy(
+                inv[at:at + n].reshape(hb[k].shape).astype(np.int32))
+            at += n
+    return out_p, out_b
+
+
+def din_phase(seed: int):
+    """Phase 18b: DIN at din()'s full tables on the card.  Training: the
+    train_batch cell's B at S = 100; one step (AdamW at DIN_STEP) run twice
+    from the same seeded state with PyTorch's defaults, bit-equal (the
+    loss, grad_norm and an exact checksum of every parameter and moment:
+    the 21.8 GB of tables and moments cannot be held twice beside a step),
+    then DIN_STEPS steps in all on that batch lower its loss.  Serving:
+    serve_p99's B through ``din_logits``, p50 and p99 over
+    DIN_SERVE_CALLS calls, the logits within 1e-4 of max |logit| of the
+    CPU's on compact tables.  Retrieval: one user against DIN_CANDIDATES
+    candidates in chunks of DIN_CHUNK, DIN_CHECKED sampled scores within
+    2e-4 (the reference test's bar) of ``din_logits`` on the tiled batch.
+    No kernel launches."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.data.recsys import din_batch, din_retrieval_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import recsys as r
+    from repro_torch.train.optimizer import AdamWConfig, init_state
+    from repro_torch.train.train_step import build_train_step
+
+    cfg = registry.get("din").make_config()
+    ops.reset_launches()
+
+    def fresh():
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return r.din_init(cfg, gen, "cuda")
+
+    def on_card(hb):
+        return {k: torch.from_numpy(v).to("cuda") for k, v in hb.items()}
+
+    t = time.perf_counter()
+    params = fresh()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    table_bytes = sum(params[k].nbytes for k in
+                      ("item_table", "cate_table", "tag_table"))
+    t = time.perf_counter()
+    batch = on_card(din_batch(DIN_TRAIN_B, cfg.seq_len, cfg.n_items,
+                              cfg.n_cates, cfg.n_tags, cfg.tag_bag_width,
+                              seed=seed))
+    batch_s = time.perf_counter() - t
+    log(f"[din] 18b tables {table_bytes / 1e9:.2f} GB drawn on the card in "
+        f"{init_s:.2f} s; batch B={DIN_TRAIN_B} S={cfg.seq_len} made in "
+        f"{batch_s:.2f} s")
+
+    opt = AdamWConfig(**DIN_STEP)
+    loss_fn = lambda p, b: r.din_loss(p, b, cfg)
+    step = build_train_step(loss_fn, opt)
+    prints, step_s, peaks = [], [], []
+    for run in range(2):
+        if run:
+            del params, state
+            torch.cuda.empty_cache()
+            params = fresh()
+        state = init_state(opt, params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        peaks.append(torch.cuda.max_memory_allocated())
+        prints.append((m["loss"].clone(), m["grad_norm"].clone(),
+                       bits_checksum(params), bits_checksum(state)))
+    same = (same_bits(prints[0][0], prints[1][0])
+            and same_bits(prints[0][1], prints[1][1])
+            and prints[0][2:] == prints[1][2:])
+    loss0, gnorm = float(prints[0][0]), float(prints[0][1])
+    for _ in range(DIN_STEPS - 1):
+        t = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        loss_after = float(loss_fn(params, batch))
+    log(f"[din] 18b train: loss {loss0!r} → {loss_after!r} after "
+        f"{DIN_STEPS} steps, grad_norm {gnorm:.4g}; one step twice "
+        f"bit-equal {same}; steps {[round(x * 1e3, 1) for x in step_s]} ms; "
+        f"peak {max(peaks + [peak]) / 2**30:.2f} GiB")
+    if not (math.isfinite(loss0) and math.isfinite(gnorm)
+            and loss_after < loss0):
+        raise AssertionError(f"18b: loss {loss0} → {loss_after}, grad_norm "
+                             f"{gnorm}")
+    if not same:
+        raise AssertionError("18b: two runs of the DIN step differ")
+    train = dict(loss=loss0, loss_after=loss_after, grad_norm=gnorm,
+                 bit_equal=same, step_s=step_s, peak_bytes=max(peaks + [peak]),
+                 table_bytes=table_bytes, init_s=init_s, batch_s=batch_s)
+    del state, batch, m
+    torch.cuda.empty_cache()
+
+    # serving: serve_p99's B through din_logits
+    hb = din_batch(DIN_SERVE_B, cfg.seq_len, cfg.n_items, cfg.n_cates,
+                   cfg.n_tags, cfg.tag_bag_width, seed=seed + 1)
+    hb.pop("labels")
+    sb = on_card(hb)
+    times = []
+    with torch.no_grad():
+        for i in range(DIN_SERVE_CALLS + 3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits = r.din_logits(params, sb, cfg)
+            torch.cuda.synchronize()
+            if i >= 3:                              # 3 warm-up calls
+                times.append(time.perf_counter() - t)
+        cpu_params, cpu_batch = compact_din(params, hb)
+        want = r.din_logits(cpu_params, cpu_batch, cfg)
+    err = float((logits.cpu() - want).abs().max() / want.abs().max())
+    p50, p99 = (float(x) for x in np.percentile(np.array(times) * 1e3,
+                                                [50, 99]))
+    log(f"[din] 18b serve B={DIN_SERVE_B}: p50 {p50:.3f} ms, p99 {p99:.3f} ms "
+        f"over {DIN_SERVE_CALLS} calls; logits vs CPU on compact tables "
+        f"{err:.2e} of max |logit| (tolerance 1e-4)")
+    if not err <= 1e-4:
+        raise AssertionError(f"18b serve: logits vs CPU {err}")
+    serve = dict(p50_ms=p50, p99_ms=p99, cpu_err=err)
+
+    # retrieval: one user against DIN_CANDIDATES candidates
+    rh = din_retrieval_batch(DIN_CANDIDATES, cfg.seq_len, cfg.n_items,
+                             cfg.n_cates, cfg.n_tags, cfg.tag_bag_width,
+                             seed=seed + 2)
+    rb = on_card(rh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        t = time.perf_counter()
+        scores = r.din_retrieval_scores(params, rb, cfg, chunk=DIN_CHUNK)
+        torch.cuda.synchronize()
+        ret_s = time.perf_counter() - t
+        pick = torch.from_numpy(np.sort(np.random.default_rng(seed).choice(
+            DIN_CANDIDATES, DIN_CHECKED, replace=False))).to("cuda")
+        tile = lambda x: x.expand(DIN_CHECKED, -1)
+        pb = {"hist_items": tile(rb["hist_items"]),
+              "hist_cates": tile(rb["hist_cates"]),
+              "hist_mask": tile(rb["hist_mask"]),
+              "target_item": rb["cand_items"][pick],
+              "target_cate": rb["cand_cates"][pick],
+              "profile_tags": tile(rb["profile_tags"]),
+              "profile_mask": tile(rb["profile_mask"])}
+        ref = r.din_logits(params, pb, cfg)
+    got = scores[pick]
+    gap = float(((got - ref).abs() - (2e-4 + 2e-4 * ref.abs())).max())
+    ret_peak = torch.cuda.max_memory_allocated()
+    log(f"[din] 18b retrieval: {DIN_CANDIDATES} candidates in chunks of "
+        f"{DIN_CHUNK} in {ret_s:.3f} s (peak {ret_peak / 2**30:.2f} GiB); "
+        f"{DIN_CHECKED} sampled scores vs din_logits: max |gap| "
+        f"{float((got - ref).abs().max()):.2e} (tolerance 2e-4 + 2e-4·|ref|)")
+    if not (scores.shape == (DIN_CANDIDATES,) and gap <= 0
+            and bool(torch.isfinite(scores).all())):
+        raise AssertionError(f"18b retrieval: scores {tuple(scores.shape)}, "
+                             f"gap over tolerance {gap}")
+    retrieval = dict(seconds=ret_s, peak_bytes=ret_peak,
+                     max_gap=float((got - ref).abs().max()))
+    launches = dict(ops.launches)
+    if launches != NO_LAUNCHES:
+        raise AssertionError(f"18b launched {launches}")
+    del params, rb, scores
+    torch.cuda.empty_cache()
+    return dict(train=train, serve=serve, retrieval=retrieval,
+                launches=launches)
+
+
+def gnn_din_cli_phase(clis: dict, out_dir: Path):
+    """Phase 18c: the two ``launch.train`` CLIs started with phase 11's
+    (``cli_runs``): exit 0 (``finish_clis`` held it) and finite losses
+    printed at steps 10 and 20; their checkpoints are deleted after."""
+    import math
+    import shutil
+
+    out = {}
+    for name in ("train_gcn", "train_din"):
+        lines = [ln for ln in clis[name]["stdout"].splitlines()
+                 if ln.startswith("step")]
+        losses = [float(ln.split()[3]) for ln in lines]
+        log(f"[cli] 18c {name}: {clis[name]['seconds']:.1f} s beside the "
+            f"other CLIs; " + " | ".join(lines))
+        if len(losses) != 2 or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"18c {name}: {clis[name]['stdout']}")
+        out[name] = dict(seconds=clis[name]["seconds"], losses=losses)
+        shutil.rmtree(out_dir / f"chip_smoke_{name}_ckpt", ignore_errors=True)
+    return out
+
+
+def gnn_din_phase(seed: int, clis: dict, out_dir: Path):
+    """Phase 18: GNN and recsys training (18a-18c)."""
+    import torch
+
+    t = time.perf_counter()
+    out = {"gnn": gnn_phase(seed)}
+    torch.cuda.empty_cache()
+    out["din"] = din_phase(seed)
+    out["cli"] = gnn_din_cli_phase(clis, out_dir)
+    out["seconds"] = time.perf_counter() - t
+    log(f"[gnn] phase 18 in {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--side", type=int, default=96)
@@ -5094,6 +5541,11 @@ def main(argv=None) -> int:
     # -- 17. LM sharding ------------------------------------------------------------
     report["lm_shard"] = lm_shard_phase(args.seed, out_dir)
     lap(17)
+
+    # -- 18. GNN and recsys training ---------------------------------------------------
+    report["gnn_din"] = gnn_din_phase(args.seed, clis, out_dir)
+    torch.cuda.empty_cache()
+    lap(18)
 
     for route in SHARD_ROUTES:
         report["sharded_" + route] = {

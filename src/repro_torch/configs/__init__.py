@@ -1,1 +1,1 @@
-"""Architecture configurations (the LM family)."""
+"""Architecture configurations (the LM, GNN and recsys families)."""

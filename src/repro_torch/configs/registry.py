@@ -1,26 +1,26 @@
-"""Architecture registry of the port: the LM family, dense and MoE.
+"""Architecture registry of the port: the LM family (dense and MoE), the
+four GNNs and DIN.
 
 ``ARCHS[arch_id]`` → ArchEntry(family, make_config, make_reduced, cells,
 shapes), as in the JAX package's ``repro/configs/registry.py``; ``--arch
 <id>`` in the port's launchers (``launch.lm_serve``, ``launch.train``)
-resolves through this table, and the five thin modules
-(``configs/qwen2_1_5b.py`` …) re-export its LM entries.  Not ported yet:
-the GNN and recsys entries (ROADMAP queue 1, item 7, "GNN and recsys") and
-the solver's ``pirmcut`` entry (item 7, "Dry runs"); ``get`` names the
-bullet.
+resolves through this table, and the ten thin modules
+(``configs/qwen2_1_5b.py``, ``configs/gcn_cora.py``, ``configs/din.py`` …)
+re-export its entries.  Not ported yet: the solver's ``pirmcut`` entry
+(ROADMAP queue 1, item 7, "Dry runs"); ``get`` names the bullet.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict, Tuple
 
-from . import lm
+from . import din_cfg, gnn, lm
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchEntry:
     arch_id: str
-    family: str                      # lm
+    family: str                      # lm | gnn | recsys
     make_config: Callable
     make_reduced: Callable
     cells: Tuple[str, ...]
@@ -35,12 +35,21 @@ for _id, _fn in lm.LM_ARCHS.items():
         make_reduced=lambda _id=_id: lm.reduced_lm(_id),
         cells=lm.LM_CELLS, shapes=lm.LM_SHAPES)
 
-# the JAX registry's other families, still to port
-NOT_PORTED = {"gcn-cora": "gnn", "schnet": "gnn", "dimenet": "gnn",
-              "meshgraphnet": "gnn", "din": "recsys", "pirmcut": "solver"}
-# the bullet of ROADMAP.md queue 1, item 7 that ports each family
-PORTED_BY = {"gnn": "GNN and recsys", "recsys": "GNN and recsys",
-             "solver": "Dry runs"}
+for _id, _fn in gnn.GNN_ARCHS.items():
+    ARCHS[_id] = ArchEntry(
+        arch_id=_id, family="gnn", make_config=_fn,
+        make_reduced=lambda _id=_id: gnn.reduced_gnn(_id),
+        cells=gnn.GNN_CELLS, shapes=gnn.GNN_SHAPES)
+
+ARCHS["din"] = ArchEntry(
+    arch_id="din", family="recsys", make_config=din_cfg.din,
+    make_reduced=din_cfg.reduced_din,
+    cells=din_cfg.DIN_CELLS, shapes=din_cfg.DIN_SHAPES)
+
+# the JAX registry's other family, still to port
+NOT_PORTED = {"pirmcut": "solver"}
+# the bullet of ROADMAP.md queue 1, item 7 that ports it
+PORTED_BY = {"solver": "Dry runs"}
 
 
 def not_ported_message(arch_id: str) -> str:

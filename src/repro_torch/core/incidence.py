@@ -74,6 +74,15 @@ def segment_sum(seg: Segments, x: torch.Tensor) -> torch.Tensor:
     return reduce_segments(seg.offsets, x[..., seg.perm])
 
 
+def segment_sum_rows(seg: Segments, x: torch.Tensor) -> torch.Tensor:
+    """The row-wise twin of ``segment_sum``: per-node sums of the rows of
+    ``x`` (its first dimension indexed by edge) in the fixed order of
+    ``seg``, shape ``(n,) + x.shape[1:]``.  On the CPU the bits are those
+    of ``index_add_`` along dim 0."""
+    return torch.segment_reduce(x[seg.perm], "sum", offsets=seg.offsets,
+                                axis=0, unsafe=True)
+
+
 def coo_plan(src: torch.Tensor, dst: torch.Tensor, n: int) -> CooPlan:
     """The ``CooPlan`` of a topology, built once on the device of its
     index arrays (stable sorts, deterministic on every device)."""

@@ -1,1 +1,2 @@
-"""Synthetic data pipelines (numpy, host side)."""
+"""Synthetic data pipelines (numpy, host side): LM tokens, GNN batches and
+the fanout sampler, DIN click logs."""

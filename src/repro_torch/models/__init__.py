@@ -1,1 +1,2 @@
-"""Models of the port: the LM transformer, inference half."""
+"""Models of the port: the LM transformer (serving, training, sharding),
+the four GNNs and DIN."""

@@ -1,4 +1,4 @@
-"""Shared neural-net layers of the LM stack (PyTorch).
+"""Shared neural-net layers of the LM, GNN and recsys models (PyTorch).
 
 The port of ``repro/models/layers.py``: plain functions over tensors, the
 same names, signatures and layouts (q [B, S, H, D], k and v [B, S, KV, D]).
@@ -21,8 +21,13 @@ come from ``route_top_k``, which breaks ties between equal gates toward the
 lower expert index, as ``lax.top_k`` does (``torch.topk`` leaves the order
 of equal values undefined, and bf16 router logits tie often).
 
-Not ported yet (ROADMAP queue 1, item 7, "GNN and recsys"):
-``embedding_bag*`` and ``mlp``.
+The GNN and recsys substrate: ``RowIndex`` with ``gather`` and
+``segment_sum``, the fixed-order counterparts of ``x[idx]`` and
+``jax.ops.segment_sum`` over rows (each one's backward is the other, so
+neither direction scatters with atomics and a step gives the same bits on
+every run on the card), ``embedding_bag`` (gather plus masked reduce, the
+reference's semantics: ``F.embedding_bag``'s ``mean`` counts padding
+otherwise), ``embedding_bag_ragged`` and ``mlp``.
 """
 from __future__ import annotations
 
@@ -544,3 +549,121 @@ def moe_aux_loss(x: torch.Tensor, router: torch.Tensor,
     ce = C.reduce(F.one_hot(top_idx[:, 0], E).float().sum(dim=0), mesh,
                   data) / T
     return E * (me * ce).sum()
+
+
+# ---------------------------------------------------------------------------
+# Fixed-order gathers and segment sums, EmbeddingBag, MLP
+# ---------------------------------------------------------------------------
+
+class RowIndex:
+    """Row ids ``ids`` (int, any shape's flat view) into a tensor of ``n``
+    rows, with the ``Segments`` of ``core/incidence`` (a stable sort, no
+    atomics) built at first use and kept: a model builds one per index
+    array per forward, and every layer's gather and sum over it reuses the
+    plan, in the forward or the backward."""
+
+    def __init__(self, ids: torch.Tensor, n: int):
+        self.ids = ids.reshape(-1)
+        self.n = int(n)
+        self._seg = None
+
+    @property
+    def seg(self):
+        if self._seg is None:
+            from ..core import incidence
+
+            self._seg = incidence.segments(self.ids, self.n)
+        return self._seg
+
+    def sum_rows(self, x: torch.Tensor) -> torch.Tensor:
+        from ..core import incidence
+
+        return incidence.segment_sum_rows(self.seg, x)
+
+
+class _Gather(torch.autograd.Function):
+    """x[ids] (rows); backward: the fixed-order segment sum over ids."""
+
+    @staticmethod
+    def forward(ctx, x, index):
+        ctx.index = index
+        return x.index_select(0, index.ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.index.sum_rows(g.contiguous()), None
+
+
+class _SegmentSum(torch.autograd.Function):
+    """Per-row sums over ids in a fixed order; backward: the gather."""
+
+    @staticmethod
+    def forward(ctx, x, index):
+        ctx.index = index
+        return index.sum_rows(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.index_select(0, ctx.index.ids), None
+
+
+def gather(x: torch.Tensor, index: RowIndex) -> torch.Tensor:
+    """``x[index.ids]`` along dim 0, shaped ``index.ids.shape +
+    x.shape[1:]``.  Where a gradient flows to ``x`` its backward is
+    ``index``'s fixed-order segment sum (autograd's own scatters with
+    atomics on the card); on the CPU its bits are those of
+    ``index_select``'s and ``F.embedding``'s backward."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Gather.apply(x, index)
+    return x.index_select(0, index.ids)
+
+
+def segment_sum(x: torch.Tensor, index: RowIndex) -> torch.Tensor:
+    """``jax.ops.segment_sum(x, ids, num_segments=n)`` over the rows of
+    ``x``, in the fixed order of ``index`` (the same bits on every run;
+    on the CPU those of ``index_add_``); its backward gathers."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _SegmentSum.apply(x, index)
+    return index.sum_rows(x)
+
+
+def embedding_bag(table: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor,
+                  mode: str = "sum") -> torch.Tensor:
+    """EmbeddingBag over fixed-width multi-hot bags: table [V, D], ids
+    int[B, W], mask f[B, W] (0 = padding).  A gather plus a masked reduce,
+    as the reference's: ``mean`` divides by the bag's mask sum (at least
+    1), ``max`` fills padding with ``NEG_INF``."""
+    emb = gather(table, RowIndex(ids, table.shape[0])).reshape(
+        ids.shape + table.shape[1:])
+    emb = emb * mask[..., None].to(emb.dtype)
+    if mode == "sum":
+        return emb.sum(dim=1)
+    if mode == "mean":
+        denom = torch.clamp(mask.sum(dim=1, keepdim=True), min=1.0)
+        return emb.sum(dim=1) / denom.to(emb.dtype)
+    if mode == "max":
+        return torch.where(mask[..., None] > 0, emb, NEG_INF).amax(dim=1)
+    raise ValueError(mode)
+
+
+def embedding_bag_ragged(table: torch.Tensor, flat_ids: torch.Tensor,
+                         segment_ids: torch.Tensor, num_bags: int,
+                         weights: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Ragged EmbeddingBag: a gather plus the fixed-order segment sum of
+    the rows into ``num_bags`` bags (CSR-style bags)."""
+    emb = gather(table, RowIndex(flat_ids, table.shape[0]))
+    if weights is not None:
+        emb = emb * weights[:, None]
+    return segment_sum(emb, RowIndex(segment_ids, num_bags))
+
+
+def mlp(x: torch.Tensor, weights, biases, act=torch.relu,
+        final_act: bool = False) -> torch.Tensor:
+    """Plain MLP: weights/biases are lists of tensors."""
+    n = len(weights)
+    for i, (w, b) in enumerate(zip(weights, biases)):
+        x = x @ w + b
+        if i < n - 1 or final_act:
+            x = act(x)
+    return x

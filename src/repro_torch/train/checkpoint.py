@@ -118,6 +118,30 @@ def to_tensor(arr: np.ndarray, device, dtype: Optional[str] = None
     return torch.from_numpy(arr).to(device)
 
 
+def tree_from_numpy(tree, like, device):
+    """A tree of numpy arrays (a reference pytree, e.g.
+    ``jax.tree.map(np.asarray, params)``) as tensors of ``like``'s dtypes
+    on ``device``, after checking that its leaves are ``like``'s, key for
+    key and shape for shape (bfloat16 from its bits).  ``like`` may be on
+    the ``meta`` device."""
+    want = {k: tuple(t.shape) for k, t in named_leaves(like)}
+    got = named_leaves(tree)
+    if [k for k, _ in got] != list(want):
+        raise ValueError(f"parameter tree {[k for k, _ in got]} is not "
+                         f"{list(want)}")
+    for k, a in got:
+        if tuple(np.shape(a)) != want[k]:
+            raise ValueError(f"{k}: shape {np.shape(a)}, expected {want[k]}")
+
+    def convert(t, ref):
+        if isinstance(t, dict):
+            return {k: convert(t[k], ref[k]) for k in t}
+        if isinstance(t, (list, tuple)):
+            return [convert(a, b) for a, b in zip(t, ref)]
+        return to_tensor(np.array(t), device).to(ref.dtype)
+    return convert(tree, like)
+
+
 def _write(path: str, step: int, host: Dict[str, np.ndarray],
            manifest: Dict) -> str:
     ckpt = os.path.join(path, f"ckpt_{step:08d}.npz")

@@ -5,10 +5,12 @@ The port of ``repro/train/optimizer.py``, with its semantics kept exactly
 step's increment, the bias corrections use the incremented count, decay is
 decoupled and applied to leaves with ndim ≥ 2 only (the stacked norms
 (L, D) are such leaves, as in the reference), the clip factor is cast to
-each gradient's dtype before the multiply, and the moments are stored in
-``moments_dtype``.  Parameters and moments are updated in place under
-``torch.no_grad()``; the count and the metrics stay on the parameters'
-device (no host sync).
+each gradient's dtype before the multiply (inside the update: the caller's
+gradients are not copied or written), and the moments are stored in
+``moments_dtype``.  A leaf of more than ``SLICE_ENTRIES`` entries is
+updated in row slices, with the same bits.  Parameters and moments are
+updated in place under ``torch.no_grad()``; the count and the metrics stay
+on the parameters' device (no host sync).
 
 A tree is the reference's pytree: nested dicts (leaves in sorted key order,
 as ``jax.tree.leaves`` walks them), lists and tuples of tensors.  Leaves
@@ -101,11 +103,32 @@ def lr_at(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm
 
 
+# a leaf of more entries than this is updated in row slices of at most
+# this many entries, so that the update's float32 temporaries (the scaled
+# gradient, m32, v32, the step and the new value) take the slice's bytes,
+# not the leaf's (DIN's 1.8e9-entry item table would take ~7.2 GB each)
+SLICE_ENTRIES = 1 << 26
+
+
+def _row_slices(t: torch.Tensor, limit: int):
+    """Row ranges of ``t`` (along dim 0) of at most ``limit`` entries each
+    (one row at least); the whole tensor when it fits or has no rows."""
+    if t.dim() == 0 or t.numel() <= limit:
+        return [...]
+    rows = max(1, limit // max(1, t[0].numel()))
+    return [slice(i, i + rows) for i in range(0, t.shape[0], rows)]
+
+
 def apply_updates(cfg: AdamWConfig, params, grads, state):
     """One AdamW step, in place.  ``grads``: a tree shaped as ``params``'
-    (or the list of its leaves in ``named_leaves`` order).  Returns
-    (params, state, metrics) with ``grad_norm`` and ``lr`` as 0-dim float32
-    tensors on the device."""
+    (or the list of its leaves in ``named_leaves`` order); it is read, not
+    written.  Returns (params, state, metrics) with ``grad_norm`` and
+    ``lr`` as 0-dim float32 tensors on the device.
+
+    The clip factor is applied inside the update, a slice at a time, and a
+    leaf above ``SLICE_ENTRIES`` is updated in row slices through the same
+    elementwise expressions: the same bits as one update of the whole
+    leaf, with temporaries bounded by the slice."""
     ps = [p for _, p in named_leaves(params)]
     gs = [g for _, g in named_leaves(grads)]
     metrics = {}
@@ -121,9 +144,9 @@ def apply_updates(cfg: AdamWConfig, params, grads, state):
 
         gnorm = _global_norm(gs)
         metrics["grad_norm"] = gnorm
+        scale = None
         if cfg.clip_norm is not None:
             scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
-            gs = [g * scale.to(g.dtype) for g in gs]
 
         lr = lr_at(cfg, state["count"])
         metrics["lr"] = lr
@@ -135,15 +158,23 @@ def apply_updates(cfg: AdamWConfig, params, grads, state):
         for p, g, (_, m), (_, v) in zip(ps, gs, named_leaves(state["m"]),
                                         named_leaves(state["v"])):
             m, v = _local(m), _local(v)
-            g32 = g.float()
-            m32 = m.float() * cfg.b1 + g32 * (1 - cfg.b1)
-            v32 = v.float() * cfg.b2 + g32 * g32 * (1 - cfg.b2)
-            step_ = (m32 / b1c) / (torch.sqrt(v32 / b2c) + cfg.eps)
-            if p.dim() >= 2:  # decoupled weight decay on matrices only
-                step_ = step_ + cfg.weight_decay * p.float()
-            p.copy_((p.float() - lr * step_).to(p.dtype))
-            m.copy_(m32.to(cfg.moments_dtype))
-            v.copy_(v32.to(cfg.moments_dtype))
+            decay = p.dim() >= 2      # decoupled weight decay on matrices only
+            g_scale = None if scale is None else scale.to(g.dtype)
+            for rows in _row_slices(p, SLICE_ENTRIES):
+                ps_, gs_, ms_, vs_ = p[rows], g[rows], m[rows], v[rows]
+                if g_scale is not None:
+                    gs_ = gs_ * g_scale
+                g32 = gs_.float()
+                m32 = ms_.float() * cfg.b1 + g32 * (1 - cfg.b1)
+                v32 = vs_.float() * cfg.b2 + g32 * g32 * (1 - cfg.b2)
+                del gs_, g32
+                step_ = (m32 / b1c) / (torch.sqrt(v32 / b2c) + cfg.eps)
+                if decay:
+                    step_ = step_ + cfg.weight_decay * ps_.float()
+                ps_.copy_((ps_.float() - lr * step_).to(p.dtype))
+                del step_
+                ms_.copy_(m32.to(cfg.moments_dtype))
+                vs_.copy_(v32.to(cfg.moments_dtype))
         state["count"].copy_(count)
     return params, state, metrics
 

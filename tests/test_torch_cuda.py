@@ -897,3 +897,40 @@ def test_resumed_training_state_lands_on_the_card(card, tmp_path):
     for key, t in ck.named_leaves(state):
         assert back[key].device == t.device and back[key].dtype == t.dtype
         assert torch.equal(back[key], t), key
+
+
+@pytest.mark.parametrize("arch", ["gcn-cora", "schnet", "dimenet",
+                                  "meshgraphnet", "din"])
+def test_gnn_and_din_step_twice_is_bit_equal(card, arch):
+    """One train step of the reduced model (``launch.train``'s builders on
+    the card, PyTorch's default, non-deterministic settings) run twice from
+    the same state: the same loss, grad_norm, parameters and moments to the
+    bit (the gathers' backward and the segment sums are fixed-order, with
+    no atomics)."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.checkpoint import named_leaves, tree_map
+    from repro_torch.train.optimizer import AdamWConfig, init_state
+    from repro_torch.train.train_step import build_train_step
+
+    if arch == "din":
+        _, params, loss_fn, batches = launch_train.build_din_training(
+            True, 64, 0, card)
+    else:
+        _, params, loss_fn, batches = launch_train.build_gnn_training(
+            arch, True, 0, card)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1)
+    state = init_state(opt, params)
+    batch = next(batches)
+    step = build_train_step(loss_fn, opt)
+    runs = []
+    for _ in range(2):
+        p = tree_map(lambda t: t.detach().clone(), params)
+        s = tree_map(lambda t: t.clone(), state)
+        p, s, m = step(p, s, batch)
+        runs.append((p, s, m))
+    (p1, s1, m1), (p2, s2, m2) = runs
+    for key in ("loss", "grad_norm"):
+        assert torch.equal(m1[key], m2[key]), key
+    for a, b in ((p1, p2), (s1["m"], s2["m"]), (s1["v"], s2["v"])):
+        for (key, x), (_, y) in zip(named_leaves(a), named_leaves(b)):
+            assert torch.equal(x, y), key

@@ -184,3 +184,24 @@ def test_port_sharding_modules_stand_alone():
     assert names >= {"repro_torch.models.sharding",
                      "repro_torch.launch.mesh",
                      "repro_torch.train.pipeline"}
+
+
+def test_port_gnn_and_recsys_modules_stand_alone():
+    """The GNN and recsys models, their data builders, the sampler and the
+    configs import with ``jax`` blocked and bring in no ``repro``
+    module."""
+    probe = _PROBE.replace("print(len(names))", "print(' '.join(names))")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", probe], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    names = set(out.stdout.split())
+    assert names >= {"repro_torch.models.gnn", "repro_torch.models.recsys",
+                     "repro_torch.data.graphs", "repro_torch.data.recsys",
+                     "repro_torch.data.sampler", "repro_torch.configs.gnn",
+                     "repro_torch.configs.din_cfg",
+                     "repro_torch.configs.gcn_cora",
+                     "repro_torch.configs.schnet",
+                     "repro_torch.configs.dimenet",
+                     "repro_torch.configs.meshgraphnet",
+                     "repro_torch.configs.din"}

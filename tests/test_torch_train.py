@@ -143,6 +143,48 @@ def test_apply_updates_bf16_params_match_jax():
         np.testing.assert_array_equal(_bits(tp[k]), _bits(jp[k]))
 
 
+@pytest.mark.parametrize("case", sorted(OPT_CASES))
+def test_apply_updates_in_row_slices_keeps_the_bits(case, monkeypatch):
+    """With ``SLICE_ENTRIES`` lowered to 100, a table of 300 × 18 entries
+    (and the problem's other leaves above 100 entries) is updated in row
+    slices: three steps give parameters, moments, the residual, the count
+    and the metrics ``torch.equal`` to the whole-leaf update (the
+    default), and the caller's gradients are left as they were."""
+    from repro_torch.train import optimizer as topt
+
+    cfg = AdamWConfig(**OPT_CASES[case])
+    rng = np.random.default_rng(11)
+    _, base, grads = _opt_problem(9, jnp.float32)
+    base["table"] = torch.from_numpy(
+        rng.standard_normal((300, 18)).astype(np.float32))
+    for g in grads:
+        g["table"] = (rng.standard_normal((300, 18)) * 2).astype(np.float32)
+    runs = []
+    for limit in (topt.SLICE_ENTRIES, 100):
+        monkeypatch.setattr(topt, "SLICE_ENTRIES", limit)
+        params = {k: v.clone() for k, v in base.items()}
+        state = init_state(cfg, params)
+        metrics = []
+        for g in grads:
+            tg = {k: torch.from_numpy(v.copy()) for k, v in g.items()}
+            _, _, m = apply_updates(cfg, params, tg, state)
+            for k, v in g.items():
+                assert np.array_equal(tg[k].numpy(), v), k
+            metrics.append(m)
+        runs.append((params, state, metrics))
+    (p1, s1, m1), (p2, s2, m2) = runs
+    assert len(topt._row_slices(p2["table"], 100)) == 60
+    for a, b in zip(m1, m2):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    trees = [(p1, p2), (s1["m"], s2["m"]), (s1["v"], s2["v"])]
+    if cfg.compress_grads:
+        trees.append((s1["ef_residual"], s2["ef_residual"]))
+    for a, b in trees:
+        for k in a:
+            assert torch.equal(a[k], b[k]), (case, k)
+    assert torch.equal(s1["count"], s2["count"])
+
+
 def test_named_leaves_follow_jax_order():
     tree = {"z": torch.zeros(1), "a": {"y": torch.ones(2), "b": [
         torch.zeros(3), torch.ones(4)]}, "n": None}
@@ -703,10 +745,41 @@ def test_launch_train_cpu_trains_and_resumes():
         assert params["layers"]["wq"].shape == (2, 64, 64)
 
 
-@pytest.mark.parametrize("arch", ["gcn-cora", "schnet", "din"])
-def test_launch_train_gnn_and_recsys_raise(arch):
-    with pytest.raises(NotImplementedError, match="GNN and recsys"):
-        launch_train.main(["--arch", arch, "--device", "cpu"])
+@pytest.mark.parametrize("arch", ["gcn-cora", "schnet", "dimenet",
+                                  "meshgraphnet", "din"])
+def test_launch_train_gnn_and_recsys(arch):
+    """``launch.train --arch <arch> --reduced --steps 3 --device cpu``
+    resumes at step 0 from a checkpoint of the reference's own state (its
+    ``build_*_training`` init and fresh AdamW state, written by the
+    reference's ``checkpoint.save``) and trains on the launcher's batches:
+    the journal's three losses within rel 1e-4 of the reference's train
+    step on the reference launcher's batches (the same batches: the data
+    builders are copies; float32 sums in other orders through two
+    updates), the printout the reference's."""
+    from repro.launch import train as jlaunch
+
+    if arch == "din":
+        _, jparams, jloss, jbatches = jlaunch.build_din_training(True, 8, 0)
+    else:
+        _, jparams, jloss, jbatches = jlaunch.build_gnn_training(arch, True,
+                                                                 0)
+    opt = jopt.AdamWConfig()                  # the CLI's defaults
+    jstate = jopt.init_state(opt, jparams)
+    with tempfile.TemporaryDirectory() as d:
+        jck.save(d, 0, (jparams, jstate))
+        jstep = jax.jit(jbuild(jloss, opt))
+        jlosses = []
+        for _ in range(3):
+            jparams, jstate, m = jstep(jparams, jstate, next(jbatches))
+            jlosses.append(float(m["loss"]))
+        ctl, out = _train_cli(["--arch", arch, "--reduced", "--steps", "3",
+                               "--log-every", "3", "--ckpt-dir", d,
+                               "--device", "cpu"])
+        recs = ctl.journal.read()
+    assert {"event": "resumed", "step": 0} in recs
+    losses = [r["loss"] for r in recs if "loss" in r]
+    assert len(losses) == 3 and "step     3 loss" in out
+    np.testing.assert_allclose(losses, jlosses, rtol=1e-4)
 
 
 def test_launch_train_solver_arch_and_missing_card():
