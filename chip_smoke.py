@@ -305,7 +305,13 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
        the sharded prefill on (data 2, model 2) through ``flash_fwd`` (its
        launches: one a layer a rank) and 16 decode steps on the sharded
        caches fed the unsharded greedy tokens (logits within 5e-2 of max
-       |logits|), then 3 train steps (losses within rel 1e-3, grad_norm
+       |logits|); split-KV: the prompt's first row alone (a batch of 1
+       does not split over data 2, so the caches' sequence does, as
+       ``long_500k``'s), its prefill and 16 decode steps against the
+       unsharded run's first row (5e-2 of max |logits|), the caches' blocks
+       over the sequence, no all-gather over data and three all-reduces
+       over data a layer a step (the softmax's max, its sum, the output),
+       then 3 train steps (losses within rel 1e-3, grad_norm
        within 2e-2 of the unsharded run's; bytes a rank by op and mesh
        dim).
     c. The same ranks on (pod 2, model 2): the GPipe loss of the first
@@ -348,6 +354,36 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
     c. ``launch.train --arch gcn-cora --steps 20`` and ``--arch din
        --reduced --steps 20``, started with phase 11's CLIs: exit 0 and
        finite losses printed.
+
+19. The dry runs (``launch.cells``, ``launch.dryrun``, the op walker
+    ``launch.hlo_analysis``, the planning mesh over torch's fake process
+    group; no kernel launches).
+    a. Four spawned gloo ranks on the card (``_mesh_rank``): the four GNNs
+       at full width on full_graph_sm on (data 2, model 2) with
+       ``gnn_rules`` (nodes, edges and triplets over both axes), one step
+       at 18a's lr run twice from the same state: loss and grad_norm
+       within rel 1e-5 of 18a's unsharded step (SchNet's and DimeNet's
+       graph energy E within rel 1e-5, their loss (E - y)² within
+       2e-5·|E|/|E - y| and grad_norm within 1e-5·(1 + |E|/|E - y|): the
+       residual cancels), the two runs bit-equal;
+       DIN at din()'s widths and full table rows on (data 1, model 4)
+       with ``din_rules`` (each rank a quarter of the 7.28 GB tables), a
+       batch of MESH_DIN_B: the sharded step's loss within rel 1e-5 of the
+       unsharded loss, and MESH_DIN_CANDIDATES retrieval candidates over
+       the four ranks, MESH_DIN_CHECKED sampled scores within 2e-4 of
+       ``din_logits`` on the tiled batch.
+    b. The planner against the card (``plan_worker``, on fake CUDA tensors
+       in two processes started when phase 11's CLIs end, beside phases
+       12–18: ~45 s of host time):
+       16b's step and 18b's DIN step planned at a world of one, each
+       planned peak within 20% of the peak the phase measured; 17b's
+       sharded step planned on a fake (2, 2) world, its collective census
+       equal to the one rank 0 recorded in 17b.  The card's name and
+       ``total_memory`` are logged (``hlo_analysis.CARD_TOTAL_MEMORY``).
+    c. ``python -m repro_torch.launch.dryrun`` for one cell a family on the
+       single-pod mesh (qwen2-1.5b train_4k, gcn-cora ogb_products, din
+       train_batch, pirmcut road_asia), started with 19b's processes:
+       every record ``ok``, each peak a rank logged against the card.
 
 TF32 is switched off for matmuls and cuDNN, so every float32 product is a
 full float32 product.  The last two lines of standard output are the
@@ -1360,18 +1396,6 @@ def batched_ell_phase(side: int, lanes: int, seed: int):
                 pcg_gap=gap)
 
 
-def flash_flops(bh: int, sq: int, sk: int, d: int, causal: bool) -> int:
-    """The attention forward's flops for this run's mask: two products of
-    2·D flops for every (row, key) pair the mask keeps."""
-    if not causal:
-        pairs = sq * sk
-    elif sq <= sk:
-        pairs = sq * (sq + 1) // 2
-    else:
-        pairs = sk * (sk + 1) // 2 + (sq - sk) * sk
-    return 4 * d * bh * pairs
-
-
 def flash_fwd_alone(cfg, batch: int, seq: int, seed: int):
     """Phase 10a: ``flash_fwd`` at the LM path's prefill shapes (bf16,
     causal) against its dense plain version, in the path's own [B, S, H, D]
@@ -1434,7 +1458,7 @@ def flash_fwd_alone(cfg, batch: int, seq: int, seed: int):
     log(f"  flash_fwd library (SDPA): worst err/scale "
         f"{float(((lib - want.float()).abs() / s_out).max()):.3e}")
     del lib, want, s_out
-    flops = flash_flops(q3.shape[0], seq, seq, D, True)
+    flops = ops.flash_flops(q3.shape[0], seq, seq, D, True)
     t_b = bound(nbytes(q, k, v, q) + q3.shape[0] * seq * 4, flops,
                 PEAK_BF16_TC_FLOP_PER_S)
     out = dict(
@@ -1459,7 +1483,7 @@ def flash_fwd_alone(cfg, batch: int, seq: int, seed: int):
     out["f32"] = dict(max_abs_err=err32, shape=[[*q.shape], [*k.shape]],
                       ms=time_ms(lambda: ops.flash_fwd(q, k, v, **kw), 10),
                       bound_ms=bound(nbytes(q, k, v, q) + 2 * KV * G * 1024 * 4,
-                                     flash_flops(2 * KV * G, 1024, 1536, D,
+                                     ops.flash_flops(2 * KV * G, 1024, 1536, D,
                                                  False))[0])
     del q, k, v
     torch.cuda.empty_cache()
@@ -2082,7 +2106,28 @@ def cli_runs(out_dir: Path) -> dict:
                        "gcn-cora", "--steps", "20"] + ckpt("train_gcn"), 300),
         "train_din": (["-m", "repro_torch.launch.train", "--arch", "din",
                        "--reduced", "--steps", "20"] + ckpt("train_din"),
-                      300)}
+                      300),
+}
+
+
+def plan_runs(out_dir: Path) -> dict:
+    """Phase 19's planning processes, as ``start_clis`` takes them: the
+    dryrun CLI on DRYRUN_CELLS (19c) and ``plan_worker`` in two processes
+    (19b).  They need host time only (~45 s each at most on the card's
+    host), so they start when phase 11's CLIs end and run beside phases
+    12–18."""
+    def worker(names):
+        path = str(out_dir / f"chip_smoke_plans_{'_'.join(names)}.json")
+        return (["-c", f"import chip_smoke; chip_smoke.plan_worker({path!r}, "
+                 f"{names!r})"], 600)
+
+    return {**{f"dryrun_{arch}": (["-m", "repro_torch.launch.dryrun",
+                                   "--arch", arch, "--cell", cell, "--mesh",
+                                   "single", "--out",
+                                   str(out_dir / "dryrun_torch")], 600)
+               for arch, cell in DRYRUN_CELLS},
+            "plan_16b": worker(("16b",)),
+            "plan_18b_17b": worker(("18b", "17b"))}
 
 
 def cli_phase(clis: dict, out_dir: Path):
@@ -4582,10 +4627,25 @@ def _lm_rank(rank: int, store: str, out_path: str, seed: int, ref_path: str,
                     sp, cache, want["tokens"][i].to("cuda"), S + i, kcfg,
                     rules)
                 errs.append(_rel(whole(logits), want["decode"][i]))
+            placements = {k: str(v.placements) for k, v in cache.items()}
+            # split-KV: a batch of 1, the caches' sequence over data
+            logits, cache = tr.prefill(sp, batches[-1][:1], kcfg, rules,
+                                       pad_cache_to=S + LM_SHARD_DECODE)
+            kv_errs = [_rel(whole(logits), want["prefill"][:1])]
+            C.census.reset()
+            for i in range(LM_SHARD_DECODE):
+                logits, cache = tr.decode_step(
+                    sp, cache, want["tokens"][i][:1].to("cuda"), S + i, kcfg,
+                    rules)
+                kv_errs.append(_rel(whole(logits), want["decode"][i][:1]))
         return dict(logits_rel=errs, launches=launches,
                     prefill_census=prefill_bytes,
-                    cache_placements={k: str(v.placements)
-                                      for k, v in cache.items()})
+                    cache_placements=placements,
+                    split_kv=dict(logits_rel=kv_errs,
+                                  decode_census=C.census.snapshot(),
+                                  cache_placements={
+                                      k: str(v.placements)
+                                      for k, v in cache.items()}))
 
     def train():
         sp = tr.shard_params(seeded(cfg), tr.param_shardings(cfg, rules))
@@ -4798,9 +4858,24 @@ def lm_shard_phase(seed: int, out_dir: Path):
         f"rel max {max(max(r['serve']['logits_rel']) for r in ranks):.3e} "
         f"(tolerance {LOGIT_RTOL}); caches {sv['cache_placements']}; "
         f"prefill bytes {sv['prefill_census']}")
+    kv = sv["split_kv"]
+    kv_calls = 3 * LM_SHARD_LAYERS * LM_SHARD_DECODE
+    log(f"[lm shard] 17b split-KV serve (B 1): logits rel max "
+        f"{max(max(r['serve']['split_kv']['logits_rel']) for r in ranks):.3e}"
+        f" (tolerance {LOGIT_RTOL}); caches {kv['cache_placements']}; "
+        f"decode bytes {kv['decode_census']} (all_reduce[data] calls "
+        f"expected {kv_calls}, no all_gather[data])")
     for r in ranks:
         if max(r["serve"]["logits_rel"]) > LOGIT_RTOL:
             fails.append(f"rank {r['rank']} logits {r['serve']['logits_rel']}")
+        rk = r["serve"]["split_kv"]
+        seq_split = all(p.startswith("(Shard(dim=2)")
+                        for p in rk["cache_placements"].values())
+        dc = rk["decode_census"]
+        if not (max(rk["logits_rel"]) <= LOGIT_RTOL and seq_split
+                and "all_gather[data]" not in dc
+                and dc.get("all_reduce[data]", {}).get("calls") == kv_calls):
+            fails.append(f"rank {r['rank']} split-KV {rk}")
         if r["serve"]["launches"].get("flash_fwd") != LM_SHARD_LAYERS:
             fails.append(f"rank {r['rank']} prefill launches "
                          f"{r['serve']['launches']}")
@@ -5256,6 +5331,396 @@ def gnn_din_phase(seed: int, clis: dict, out_dir: Path):
     return out
 
 
+# -- phase 19: the dry runs ------------------------------------------------------
+
+# 19a: DIN on (data 1, model 4) at din()'s full tables, the batch cut from
+# train_batch's 65,536 to MESH_DIN_B: every rank runs the whole batch (the
+# data axis has one rank), so four ranks at 65,536 would hold four times
+# 18b's ~12 GB of activations beside their tables and moments; candidates
+# cut from retrieval_cand's 1,000,000 (a quarter a rank), of which
+# MESH_DIN_CHECKED are held against din_logits
+MESH_DIN_B = 8192
+MESH_DIN_CANDIDATES, MESH_DIN_CHECKED = 65536, 512
+# 19b: a planned peak against the peak the phase measured
+PLAN_PEAK_RTOL = 0.2
+# 19c: one cell a family through the dryrun CLI on the single-pod mesh
+DRYRUN_CELLS = (("qwen2-1.5b", "train_4k"), ("gcn-cora", "ogb_products"),
+                ("din", "train_batch"), ("pirmcut", "road_asia"))
+GNN_ARCHS = ("gcn-cora", "schnet", "dimenet", "meshgraphnet")
+
+
+def _mesh_rank(rank: int, store: str, out_path: str, seed: int,
+               gnn_ref: dict) -> None:
+    """One rank of 19a (a spawned process, gloo over CUDA tensors, every
+    rank on the one card); an ok flag all-reduced after each part fails
+    every rank when one fails.  Writes its numbers to ``out_path.<rank>``."""
+    import datetime
+    import math
+    import traceback
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import registry
+    from repro_torch.data.recsys import din_batch, din_retrieval_batch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.cells import din_rules, gnn_rules
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import gnn as g
+    from repro_torch.models import recsys as r
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.sharding import whole
+    from repro_torch.train.optimizer import AdamWConfig, init_state
+    from repro_torch.train.train_step import build_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, SHARD_RANKS),
+                            rank=rank, world_size=SHARD_RANKS,
+                            timeout=datetime.timedelta(
+                                seconds=LM_SHARD_TIMEOUT_S))
+    torch.cuda.set_device(0)
+    res = {"rank": rank}
+
+    def part(name, fn):
+        t = time.perf_counter()
+        err = None
+        try:
+            res[name] = fn()
+            torch.cuda.synchronize()
+        except Exception:                           # noqa: BLE001
+            err = traceback.format_exc()
+        flag = torch.tensor([0.0 if err else 1.0])
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+        if err:
+            raise RuntimeError(f"rank {rank}, {name}:\n{err}")
+        if float(flag) < 1.0:
+            raise RuntimeError(f"rank {rank}, {name}: another rank failed")
+        res[f"{name}_s"] = time.perf_counter() - t
+
+    def gnn():
+        rules = gnn_rules(make_host_mesh((2, 2), ("data", "model"),
+                                         device="cuda"))
+        out = {}
+        for arch in GNN_ARCHS:
+            cfg, params, _, batches = launch_train.build_gnn_training(
+                arch, False, seed, "cuda")
+            batch = g.pad_batch(next(batches), SHARD_RANKS)
+            ng = registry.get(arch).shapes["full_graph_sm"].get("n_graphs", 1)
+
+            def loss_fn(p, b, arch=arch, cfg=cfg, ng=ng):
+                bb = dict(b, n_graphs=ng) \
+                    if arch in ("schnet", "dimenet") else b
+                return g.LOSSES[arch](p, bb, cfg, rules)
+
+            want = gnn_ref[f"{arch} full_graph_sm"]
+            # SchNet's and DimeNet's loss is (E - y)² of a graph energy E
+            # summed over 2,708 atoms: E is held at rel 1e-5 (the shards sum
+            # it in another order: 6.5e-6 for SchNet on the CPU), and
+            # E - y then moves by up to 1e-5·|E|/|E - y| of itself, so the
+            # loss is held at twice that and grad_norm (|E - y| times the
+            # gradient of E, itself within 1e-5) at 1e-5·(1 + |E|/|E - y|)
+            tol, tol_norm, e_rel = 1e-5, 1e-5, None
+            if arch in ("schnet", "dimenet"):
+                fwd = {"schnet": g.schnet_forward,
+                       "dimenet": g.dimenet_forward}[arch]
+                with torch.no_grad():
+                    bb = dict(batch, n_graphs=ng)
+                    e_u = fwd(params, bb, cfg)
+                    e_s = fwd(params, bb, cfg, rules)
+                scale = float(e_u.abs().max())
+                e_rel = float((e_s - e_u).abs().max()) / scale
+                ratio = scale / math.sqrt(want["loss"])
+                tol, tol_norm = 2e-5 * max(1.0, ratio), 1e-5 * (1.0 + ratio)
+            opt = AdamWConfig(**dict(GNN_STEP, lr=want["lr"]))
+            step = build_train_step(loss_fn, opt)
+            state = init_state(opt, params)
+            runs = []
+            for _ in range(2):
+                p, s_ = tree_clone(params), tree_clone(state)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                p, s_, m = step(p, s_, batch)
+                torch.cuda.synchronize()
+                runs.append((p, s_, m, time.perf_counter() - t))
+            (p1, s1, m1, t1), (p2, s2, m2, t2) = runs
+            same = (same_bits(m1["loss"], m2["loss"])
+                    and same_bits(m1["grad_norm"], m2["grad_norm"])
+                    and tree_same_bits(p1, p2) and tree_same_bits(s1, s2))
+            loss, gnorm = float(m1["loss"]), float(m1["grad_norm"])
+            out[arch] = dict(
+                loss=loss, grad_norm=gnorm, bit_equal=same, step_s=t2,
+                tol=tol, tol_norm=tol_norm, energy_rel=e_rel,
+                loss_rel=abs(loss - want["loss"]) / abs(want["loss"]),
+                norm_rel=abs(gnorm - want["grad_norm"]) / want["grad_norm"],
+                shapes={k: list(v.shape) for k, v in batch.items()
+                        if k in ("node_mask", "edge_src", "tri_kj")})
+            del params, batch, batches, runs, p1, s1, p2, s2, state
+            torch.cuda.empty_cache()
+        return out
+
+    def din():
+        cfg = registry.get("din").make_config()
+        rules = din_rules(make_host_mesh((1, 4), ("data", "model"),
+                                         device="cuda"))
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        full = r.din_init(cfg, gen, "cuda")     # the same draws on each rank
+        on_card = lambda hb: {k: torch.from_numpy(v).to("cuda")
+                              for k, v in hb.items()}
+        batch = on_card(din_batch(MESH_DIN_B, cfg.seq_len, cfg.n_items,
+                                  cfg.n_cates, cfg.n_tags, cfg.tag_bag_width,
+                                  seed=seed))
+        rb = on_card(din_retrieval_batch(MESH_DIN_CANDIDATES, cfg.seq_len,
+                                         cfg.n_items, cfg.n_cates, cfg.n_tags,
+                                         cfg.tag_bag_width, seed=seed + 2))
+        pick = torch.from_numpy(np.sort(np.random.default_rng(seed).choice(
+            MESH_DIN_CANDIDATES, MESH_DIN_CHECKED, replace=False))).to("cuda")
+        tile = lambda x: x.expand(MESH_DIN_CHECKED, -1)
+        pb = {"hist_items": tile(rb["hist_items"]),
+              "hist_cates": tile(rb["hist_cates"]),
+              "hist_mask": tile(rb["hist_mask"]),
+              "target_item": rb["cand_items"][pick],
+              "target_cate": rb["cand_cates"][pick],
+              "profile_tags": tile(rb["profile_tags"]),
+              "profile_mask": tile(rb["profile_mask"])}
+        with torch.no_grad():
+            want_loss = float(r.din_loss(full, batch, cfg))
+            pointwise = r.din_logits(full, pb, cfg)
+        shardings = {k: (rules.named_sharding("rows", None, shape=v.shape)
+                         if k.endswith("_table") else {n: None for n in v})
+                     for k, v in full.items()}
+        sp = tr.shard_params(full, shardings)
+        del full
+        torch.cuda.empty_cache()
+        block = {k: list(sp[k].to_local().shape)
+                 for k in ("item_table", "cate_table", "tag_table")}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.no_grad():
+            scores = whole(r.din_retrieval_scores(sp, rb, cfg, rules,
+                                                  chunk=DIN_CHUNK))
+        torch.cuda.synchronize()
+        ret_s = time.perf_counter() - t
+        got = scores[pick]
+        gap = float(((got - pointwise).abs()
+                     - (2e-4 + 2e-4 * pointwise.abs())).max())
+        opt = AdamWConfig(**DIN_STEP)
+        state = init_state(opt, sp)
+        step = build_train_step(lambda p, b: r.din_loss(p, b, cfg, rules),
+                                opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        _, _, m = step(sp, state, batch)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        return dict(block=block, loss=loss, want_loss=want_loss,
+                    loss_rel=abs(loss - want_loss) / abs(want_loss),
+                    grad_norm=gnorm, step_s=step_s, retrieval_s=ret_s,
+                    scores_finite=bool(torch.isfinite(scores).all()),
+                    n_scores=int(scores.numel()), max_gap=float(
+                        (got - pointwise).abs().max()), over_bar=gap,
+                    peak_bytes=torch.cuda.max_memory_allocated())
+
+    part("gnn", gnn)
+    part("din", din)
+    Path(f"{out_path}.{rank}").write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
+def mesh_models_phase(seed: int, gnn_ref: dict, out_dir: Path):
+    """Phase 19a: the four GNNs and DIN on a mesh in four spawned gloo
+    ranks on the one card."""
+    import math
+
+    out_path = out_dir / "chip_smoke_mesh_models.json"
+    wall = run_ranks(_mesh_rank, out_path, (seed, gnn_ref), timeout_s=600)
+    ranks = [json.loads(Path(f"{out_path}.{r}").read_text())
+             for r in range(SHARD_RANKS)]
+    fails = []
+    for r in ranks:
+        for arch, x in r["gnn"].items():
+            if not (x["bit_equal"] and x["loss_rel"] <= x["tol"]
+                    and x["norm_rel"] <= x["tol_norm"]
+                    and (x["energy_rel"] is None
+                         or x["energy_rel"] <= 1e-5)):
+                fails.append(f"rank {r['rank']} {arch} {x}")
+        d = r["din"]
+        if not (d["loss_rel"] <= 1e-5 and math.isfinite(d["grad_norm"])
+                and d["scores_finite"] and d["over_bar"] <= 0
+                and d["n_scores"] == MESH_DIN_CANDIDATES):
+            fails.append(f"rank {r['rank']} din {d}")
+    head = ranks[0]
+    for arch, x in head["gnn"].items():
+        energy = ("" if x["energy_rel"] is None else
+                  f"; graph energy rel {x['energy_rel']:.2e} (tolerance "
+                  f"1e-5)")
+        log(f"[mesh] 19a {arch} full_graph_sm on (data 2, model 2), "
+            f"{x['shapes']}: loss {x['loss']!r} (rel {x['loss_rel']:.2e} of "
+            f"18a's, tolerance {x['tol']:.2e}), grad_norm "
+            f"{x['grad_norm']!r} (rel {x['norm_rel']:.2e}, tolerance "
+            f"{x['tol_norm']:.2e}), two runs "
+            f"bit-equal {x['bit_equal']}; step {x['step_s'] * 1e3:.1f} ms"
+            + energy)
+    d = head["din"]
+    log(f"[mesh] 19a din on (data 1, model 4), table blocks {d['block']}, "
+        f"B {MESH_DIN_B}: loss {d['loss']!r} vs unsharded "
+        f"{d['want_loss']!r} (rel {d['loss_rel']:.2e}, tolerance 1e-5), "
+        f"grad_norm {d['grad_norm']:.4g}, step {d['step_s']:.3f} s, peak "
+        f"{d['peak_bytes'] / 2**30:.2f} GiB a rank; {MESH_DIN_CANDIDATES} "
+        f"candidates over 4 ranks in {d['retrieval_s']:.3f} s, "
+        f"{MESH_DIN_CHECKED} sampled scores vs din_logits max |gap| "
+        f"{d['max_gap']:.2e} (tolerance 2e-4 + 2e-4·|ref|); ranks "
+        f"{wall:.1f} s")
+    if fails:
+        raise AssertionError("19a: " + "; ".join(fails))
+    return dict(gnn=head["gnn"], din=d, ranks_wall_s=wall,
+                rank_seconds={k: [r[f"{k}_s"] for r in ranks]
+                              for k in ("gnn", "din")})
+
+
+def plan_worker(path: str, names=("16b", "18b", "17b")) -> None:
+    """19b's planning runs ``names`` (``plan_runs``: host time only, no
+    card time): 16b's step and 18b's DIN step at a world of one, 17b's
+    sharded step on a fake (2, 2) world, all on fake CUDA tensors; writes
+    their peaks, memory and census to ``path``."""
+    import torch
+
+    from repro_torch.configs import lm as lm_configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import cells
+    from repro_torch.launch.mesh import make_plan_mesh, release_plan_world
+
+    out = {}
+    cases = {
+        "16b": lambda mesh: cells.build_lm_cell(
+            "qwen2-1.5b", "train_4k", mesh,
+            dataclasses.replace(lm_configs.qwen2_1_5b(),
+                                n_layers=TRAIN_LAYERS),
+            dict(kind="train", global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)),
+        "18b": lambda mesh: cells.build_din_cell("din", "train_batch", mesh),
+        "17b": lambda mesh: cells.build_lm_cell(
+            "qwen2-1.5b", "train_4k", mesh, lm_shard_cfg(),
+            dict(kind="train", global_batch=LM_SHARD_BATCH,
+                 seq_len=LM_SHARD_SEQ))}
+    shapes = {"16b": (1, 1), "18b": (1, 1), "17b": (2, 2)}
+    for name in names:
+        shape = shapes[name]
+        try:
+            mesh = make_plan_mesh(shape, ("data", "model"), device="cuda")
+            t = time.perf_counter()
+            plan = cases[name](mesh).lower()
+            out[name] = dict(memory=plan.memory, census=plan.census["models"],
+                             ops=plan.ops, plan_s=time.perf_counter() - t,
+                             device=mesh.device_type)
+        finally:
+            release_plan_world()
+    out["launches"] = dict(ops.launches)
+    out["torch"] = torch.__version__
+    Path(path).write_text(json.dumps(out))
+
+
+def planner_phase(report: dict, out_dir: Path):
+    """Phase 19b: ``plan_worker``'s planned peaks against 16b's and 18b's
+    measured ones, and its census of 17b's step against rank 0's."""
+    import torch
+
+    props = torch.cuda.get_device_properties(0)
+    out = {"card": dict(name=props.name, total_memory=props.total_memory)}
+    log(f"[plan] 19b card {props.name}: total_memory {props.total_memory} "
+        f"bytes ({props.total_memory / 2**30:.2f} GiB)")
+    plans, launches = {}, dict(NO_LAUNCHES)
+    for path in sorted(out_dir.glob("chip_smoke_plans_*.json")):
+        got = json.loads(path.read_text())
+        for k, v in got.pop("launches").items():
+            launches[k] += v
+        got.pop("torch")
+        plans.update(got)
+    plans["launches"] = launches
+    fails = []
+    measured = {"16b": report["train"]["steps"]["peak_bytes"],
+                "18b": report["gnn_din"]["din"]["train"]["peak_bytes"]}
+    for name, want in measured.items():
+        x = plans[name]
+        peak = x["memory"]["peak_estimate_bytes"]
+        rel = (peak - want) / want
+        out[name] = dict(planned=peak, measured=want, rel=rel,
+                         memory=x["memory"], ops=x["ops"], plan_s=x["plan_s"],
+                         device=x["device"])
+        log(f"[plan] 19b {name} at a world of one on fake {x['device']} "
+            f"tensors: planned peak {peak / 2**30:.3f} GiB vs measured "
+            f"{want / 2**30:.3f} GiB ({rel:+.3f}, tolerance "
+            f"±{PLAN_PEAK_RTOL}); {x['ops']} ops planned in "
+            f"{x['plan_s']:.1f} s")
+        if not abs(rel) <= PLAN_PEAK_RTOL:
+            fails.append(f"{name} planned peak {peak} vs {want}")
+    got, want = plans["17b"]["census"], \
+        report["lm_shard"]["train"]["census_step"]
+    out["17b"] = dict(census=got, equal=got == want,
+                      peak=plans["17b"]["memory"]["peak_estimate_bytes"],
+                      measured_peak=report["lm_shard"]["train"]["peak_bytes"],
+                      plan_s=plans["17b"]["plan_s"])
+    log(f"[plan] 19b 17b's step planned on a fake (2, 2) world: census equal "
+        f"to rank 0's {got == want} ({got}); planned peak "
+        f"{out['17b']['peak'] / 2**30:.3f} GiB a rank vs measured "
+        f"{out['17b']['measured_peak'] / 2**30:.3f} GiB (four ranks on one "
+        f"card: logged only)")
+    if got != want:
+        fails.append(f"17b census planned {got} vs recorded {want}")
+    if plans["launches"] != NO_LAUNCHES:
+        fails.append(f"planning launched {plans['launches']}")
+    if fails:
+        raise AssertionError("19b: " + "; ".join(fails))
+    return out
+
+
+def dryrun_cli_phase(clis: dict, out_dir: Path, card_bytes: int):
+    """Phase 19c: the dryrun CLI's records of DRYRUN_CELLS (the CLIs ran
+    with phase 11's)."""
+    out = {}
+    for arch, cell in DRYRUN_CELLS:
+        rec = json.loads((out_dir / "dryrun_torch"
+                          / f"{arch}__{cell}__single.json").read_text())
+        peak = rec["memory"]["peak_estimate_bytes"]
+        need = rec["memory"]["peak_with_margin_bytes"]
+        out[f"{arch} {cell}"] = dict(
+            ok=rec["ok"], peak_bytes=peak, peak_with_margin_bytes=need,
+            fits=rec["fits_h100"],
+            t_plan_s=rec["t_plan_s"], plan_device=rec["plan_device"],
+            roofline=rec["roofline"],
+            kernel_launches=rec["hlo_costs"]["kernel_launches"],
+            seconds=clis[f"dryrun_{arch}"]["seconds"])
+        log(f"[dryrun] 19c {arch} {cell} single: ok {rec['ok']}, planned on "
+            f"{rec['plan_device']} in {rec['t_plan_s']:.1f} s, peak "
+            f"{peak / 2**30:.2f} GiB a rank ({need / 2**30:.2f} GiB with the "
+            f"margin) against the card's {card_bytes / 2**30:.2f} GiB (fits "
+            f"{rec['fits_h100']}), "
+            f"dominant {rec['roofline']['dominant']}, useful ratio "
+            f"{rec['roofline'].get('useful_ratio')}, kernels "
+            f"{rec['hlo_costs']['kernel_launches']}")
+    if not all(x["ok"] for x in out.values()):
+        raise AssertionError(f"19c: {out}")
+    return out
+
+
+def dryrun_phase(seed: int, report: dict, plans: dict, out_dir: Path):
+    """Phase 19: the dry runs (19a-19c); ``plans``: ``plan_runs``' processes
+    as ``start_clis`` started them."""
+    t = time.perf_counter()
+    clis = finish_clis(plans)
+    gnn_ref = {k: v for k, v in report["gnn_din"]["gnn"].items()
+               if k.endswith("full_graph_sm")}
+    out = {"mesh_models": mesh_models_phase(seed, gnn_ref, out_dir)}
+    out["planner"] = planner_phase(report, out_dir)
+    out["cli"] = dryrun_cli_phase(clis, out_dir,
+                                  out["planner"]["card"]["total_memory"])
+    out["seconds"] = time.perf_counter() - t
+    log(f"[dryrun] phase 19 in {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--side", type=int, default=96)
@@ -5486,6 +5951,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     clis = finish_clis(start_clis(cli_runs(out_dir), out_dir))
     report["cli"] = cli_phase(clis, out_dir)
+    for stale in out_dir.glob("chip_smoke_plans_*.json"):
+        stale.unlink()
+    plans = start_clis(plan_runs(out_dir), out_dir)      # joined in phase 19
     lap(11)
 
     # -- 12. cut trees --------------------------------------------------------
@@ -5546,6 +6014,11 @@ def main(argv=None) -> int:
     report["gnn_din"] = gnn_din_phase(args.seed, clis, out_dir)
     torch.cuda.empty_cache()
     lap(18)
+
+    # -- 19. the dry runs --------------------------------------------------------------
+    report["dryrun"] = dryrun_phase(args.seed, report, plans, out_dir)
+    torch.cuda.empty_cache()
+    lap(19)
 
     for route in SHARD_ROUTES:
         report["sharded_" + route] = {

@@ -1,26 +1,27 @@
 """Architecture registry of the port: the LM family (dense and MoE), the
-four GNNs and DIN.
+four GNNs, DIN and the paper's own solver workload (``pirmcut``).
 
 ``ARCHS[arch_id]`` → ArchEntry(family, make_config, make_reduced, cells,
 shapes), as in the JAX package's ``repro/configs/registry.py``; ``--arch
 <id>`` in the port's launchers (``launch.lm_serve``, ``launch.train``)
 resolves through this table, and the ten thin modules
 (``configs/qwen2_1_5b.py``, ``configs/gcn_cora.py``, ``configs/din.py`` …)
-re-export its entries.  Not ported yet: the solver's ``pirmcut`` entry
-(ROADMAP queue 1, item 7, "Dry runs"); ``get`` names the bullet.
+re-export its entries.  The ``solver`` family (``pirmcut``) trains
+nothing: ``launch.train`` refuses it and points to ``launch.solve``;
+``launch.dryrun`` plans its cells with ``--include-solver``.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict, Tuple
 
-from . import din_cfg, gnn, lm
+from . import din_cfg, gnn, lm, pirmcut
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchEntry:
     arch_id: str
-    family: str                      # lm | gnn | recsys
+    family: str                      # lm | gnn | recsys | solver
     make_config: Callable
     make_reduced: Callable
     cells: Tuple[str, ...]
@@ -46,21 +47,26 @@ ARCHS["din"] = ArchEntry(
     make_reduced=din_cfg.reduced_din,
     cells=din_cfg.DIN_CELLS, shapes=din_cfg.DIN_SHAPES)
 
-# the JAX registry's other family, still to port
-NOT_PORTED = {"pirmcut": "solver"}
-# the bullet of ROADMAP.md queue 1, item 7 that ports it
-PORTED_BY = {"solver": "Dry runs"}
+ARCHS["pirmcut"] = ArchEntry(
+    arch_id="pirmcut", family="solver",
+    make_config=pirmcut.pirmcut_config, make_reduced=pirmcut.reduced_pirmcut,
+    cells=pirmcut.PIRMCUT_CELLS, shapes=pirmcut.PIRMCUT_SHAPES)
 
-
-def not_ported_message(arch_id: str) -> str:
-    family = NOT_PORTED[arch_id]
-    return (f"arch {arch_id!r} ({family} family) is not ported yet: "
-            f"ROADMAP.md queue 1, item 7, \"{PORTED_BY[family]}\"")
+ASSIGNED = [a for a in ARCHS if a != "pirmcut"]     # the 10 graded archs
 
 
 def get(arch_id: str) -> ArchEntry:
-    if arch_id in NOT_PORTED:
-        raise KeyError(not_ported_message(arch_id))
     if arch_id not in ARCHS:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCHS)}")
     return ARCHS[arch_id]
+
+
+def all_cells(include_solver: bool = False):
+    """Every (arch, cell) pair — 40 assigned (+3 solver when included)."""
+    out = []
+    for aid, e in ARCHS.items():
+        if e.family == "solver" and not include_solver:
+            continue
+        for c in e.cells:
+            out.append((aid, c))
+    return out

@@ -40,15 +40,26 @@ device, and gathers the voltages at the end: ``solve()`` returns the same
 full-length voltages, in the original node order, on every rank.  The
 collective census (``collective_stats``) counts calls and bytes per scope
 and op at the process group; it replaces the JAX package's walk over the
-compiled HLO.  The JAX package's dry-run/AOT API (``abstract_halo_plans``,
-``abstract_inputs``, ``lower``, ``compiled``) is not ported: ROADMAP
-queue 1, item 7 (dry runs).
+compiled HLO.
+
+The dry-run API plans without an instance: ``abstract_halo_plans`` gives
+the plans of a production-size cell as fake tensors of the reference's
+shapes and dtypes (no storage), a ``ShardedSolver`` built on them over a
+fake world (``launch.mesh.make_production_mesh(plan=True)``) takes its
+rank's rows, and ``lower()`` runs the solve body once on them under the
+op walker (``launch.hlo_analysis.analyze``).  Every IRLS iteration after
+the first runs the same ops, so ``lower`` plans 1 and 2 iterations and
+extrapolates to T (the reference's body-once correction; a planned
+fake op costs ~0.1 ms of host time, and 50 × 50 PCG steps over 256 ranks
+take ~10⁶ of them).  The fixed schedule reads nothing back to the host, so
+it plans as it runs; the adaptive schedule's host reads cannot be
+planned.
 """
 from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,10 +77,6 @@ from .spmv import (HaloPlan, build_halo_ell, build_halo_plan,
                    build_psum_plan, coo_reweight, halo_exchange,
                    halo_l1_local, make_ell_halo_matvec, make_halo_matvec,
                    psum_matvec)
-
-_DRY_RUN = ("the sharded solver's dry-run/AOT API is not ported: ROADMAP "
-            "queue 1, item 7 (dry runs)")
-
 
 class Float32DivergenceWarning(UserWarning):
     """IRLS reweights ran into the float32 precision wall (see
@@ -226,9 +233,44 @@ def delta_refill(plan: HaloPlan, ell, prev, instance, copy_slots,
     return plan, ell
 
 
-def abstract_halo_plans(*args, **kwargs):
-    """Analytic plan shapes for dry-run lowering: not ported."""
-    raise NotImplementedError(_DRY_RUN)
+def abstract_halo_plans(n: int, m: int, p: int, boundary_frac: float,
+                        precond_bs: int = 128, device=None
+                        ) -> Tuple[HaloPlan, HaloBlockPlan]:
+    """Analytic plan SHAPES for a planning run at scales where building a
+    real instance on the host is pointless, as fake tensors (no storage;
+    created in the ``FakeTensorMode`` the caller has entered, else in one
+    of their own).  nl/ml/b_sh follow the same padding rules as
+    ``build_halo_plan``; boundary_frac comes from the real partitioner's
+    measured cut fraction on small instances of the family.  No ELL
+    staging: the plan is of the unfused system build, as the JAX
+    package's."""
+    from torch._guards import detect_fake_mode
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    pad8 = lambda x: max(8, -(-int(x) // 8) * 8)
+    nl = pad8(-(-n // p))
+    ml = pad8(2 * m / p * 1.05)
+    b_sh = pad8(n * boundary_frac / p)
+    i32, f32, i64 = torch.int32, torch.float32, torch.int64
+    mode = detect_fake_mode() or FakeTensorMode()
+    dev = torch.device(device) if device is not None else None
+    with mode:
+        sds = lambda shape, dt: torch.empty(shape, dtype=dt, device=dev)
+        plan = HaloPlan(
+            heads=sds((p, ml), i32), tails_ext=sds((p, ml), i32),
+            c=sds((p, ml), f32), c_s=sds((p, nl), f32),
+            c_t=sds((p, nl), f32), export=sds((p, b_sh), i32),
+            node_valid=sds((p, nl), f32), perm=sds((n,), i64), n=n, nl=nl,
+            b_sh=b_sh, p=p)
+        bs = min(precond_bs, nl)
+        nb = -(-nl // bs)
+        mc = ml  # upper bound: every copy intra-block
+        bplan = HaloBlockPlan(
+            copy_b=sds((p, mc), i32), copy_i=sds((p, mc), i32),
+            copy_j=sds((p, mc), i32), copy_id=sds((p, mc), i32),
+            copy_valid=sds((p, mc), f32), node_b=sds((p, nl), i32),
+            node_s=sds((p, nl), i32), nb=nb, bs=bs)
+    return plan, bplan
 
 
 class ShardedSolver:
@@ -267,6 +309,8 @@ class ShardedSolver:
         self._instance = instance
         self.last_clamped = 0  # reweight-clamp hits of the latest solve()
         self.schedule = schedule
+        self._planned = None   # the cached planning run (``compiled``)
+        self._mode = None      # the FakeTensorMode of a planning run
         self._labels = labels
         self._precond_bs = precond_bs
         self.ell = None        # HaloEllPlan when the fused sweep is active
@@ -305,9 +349,13 @@ class ShardedSolver:
     def _row(self, a: np.ndarray, dtype=None) -> torch.Tensor:
         """This rank's row of a [p, ...] plan array as a fresh contiguous
         tensor (16-byte aligned, as the kernels' vector variants need; a
-        view of a [p, ml] array would not be where ml % 4 ≠ 0)."""
-        t = torch.tensor(np.ascontiguousarray(a[self.rank]),
-                         device=self.device)
+        view of a [p, ml] array would not be where ml % 4 ≠ 0).  A fake
+        plan array (``abstract_halo_plans``) gives a fake row of its own."""
+        if isinstance(a, torch.Tensor):
+            t = a[self.rank].to(self.device).clone()
+        else:
+            t = torch.tensor(np.ascontiguousarray(a[self.rank]),
+                             device=self.device)
         return t if dtype is None else t.to(dtype)
 
     def _upload(self, weights_only: bool = False) -> None:
@@ -442,8 +490,8 @@ class ShardedSolver:
                                step_scope=self.coll.pcg_step)
 
     # -- halo schedule --------------------------------------------------------
-    def _run_halo(self):
-        cfg, t, coll = self.cfg, self._t, self.coll
+    def _run_halo(self, t):
+        cfg, coll = self.cfg, self.coll
         nl = self.plan.nl
         nb, bs = self.block_plan.nb, self.block_plan.bs
         use_block = cfg.precond in ("block_jacobi",)
@@ -614,8 +662,8 @@ class ShardedSolver:
         return v, rels, iters, nclamps
 
     # -- psum schedule ----------------------------------------------------------
-    def _run_psum(self):
-        cfg, t, coll = self.cfg, self._t, self.coll
+    def _run_psum(self, t):
+        cfg, coll = self.cfg, self.coll
         n_pad = self.plan.n_pad
         adaptive = sched.is_adaptive(cfg)
         eps_np = eps_schedule_array(cfg)
@@ -704,14 +752,73 @@ class ShardedSolver:
         return v, rels, iters, nclamps
 
     # -- execution --------------------------------------------------------------
+    def _fake_mode(self):
+        from torch._guards import detect_fake_mode
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        if self._mode is None:
+            self._mode = detect_fake_mode(list(self._t.values())) \
+                or FakeTensorMode()
+        return self._mode
+
     def abstract_inputs(self):
-        raise NotImplementedError(_DRY_RUN)
+        """This rank's shard (its uploaded plan rows, in ``_upload``'s
+        order) as fake tensors: the solve body's arguments."""
+        from torch._subclasses.fake_tensor import FakeTensor
+
+        mode = self._fake_mode()
+        return tuple(t if isinstance(t, FakeTensor) else mode.from_tensor(t)
+                     for t in self._t.values())
+
+    def _body(self, *arrays):
+        """The solve body on this rank's shard ``arrays``
+        (``abstract_inputs``' order): the IRLS loop and, on the halo
+        schedule, the final gather of the voltages, as ``solve`` runs them.
+        Returns (voltages, rels, iters, clamp hits) on the device."""
+        t = dict(zip(self._t, arrays))
+        self.coll.reset()
+        self.coll.scope = "setup"
+        if self.schedule == "halo":
+            out, rels, iters, nclamps = self._run_halo(t)
+            out = self.coll.all_gather(out)
+        else:
+            out, rels, iters, nclamps = self._run_psum(t)
+        self.coll.scope = "setup"
+        return out, rels, iters, nclamps
 
     def lower(self):
-        raise NotImplementedError(_DRY_RUN)
+        """The planning run of the solve body on ``abstract_inputs``
+        (``launch.hlo_analysis.analyze``): its costs, memory and collective
+        census a rank.  The fixed schedule only: the adaptive one reads
+        reduced scalars back to the host, which a plan cannot."""
+        from ..launch import hlo_analysis
+
+        cfg = self.cfg
+        if sched.is_adaptive(cfg) or cfg.reweight_clamp:
+            raise ValueError("a plan runs the fixed schedule: the adaptive "
+                             "schedule and the reweight clamp read device "
+                             "values on the host")
+
+        def plan(n_irls):
+            self.cfg = dataclasses.replace(cfg, n_irls=n_irls)
+            try:
+                return hlo_analysis.analyze(self._body,
+                                            self.abstract_inputs(),
+                                            self._fake_mode(), coll=self.coll)
+            finally:
+                self.cfg = cfg
+
+        if cfg.n_irls <= 2 or cfg.eps_schedule is not None:
+            return plan(cfg.n_irls)
+        # the body-once correction: every IRLS iteration after the first
+        # runs the same ops, so plan 1 and 2 and extrapolate to T
+        return hlo_analysis.extrapolate(plan(1), plan(2), cfg.n_irls - 1)
 
     def compiled(self):
-        raise NotImplementedError(_DRY_RUN)
+        """``lower()``'s plan, cached."""
+        if self._planned is None:
+            self._planned = self.lower()
+        return self._planned
 
     def work_shape(self):
         """The ``obs.perf.profile.SolveShape`` of this rank's shard: its
@@ -828,16 +935,11 @@ class ShardedSolver:
         """
         with trace.span("sharded.solve", schedule=self.schedule, p=self.p,
                         n=self.plan.n):
-            self.coll.reset()
-            self.coll.scope = "setup"
+            out, rels, iters, nclamps = self._body(*self._t.values())
             if self.schedule == "halo":
-                out, rels, iters, nclamps = self._run_halo()
-                full = self.coll.all_gather(out)
-                v = full.reshape(-1).cpu().numpy()[self.plan.perm]
+                v = out.reshape(-1).cpu().numpy()[self.plan.perm]
             else:
-                out, rels, iters, nclamps = self._run_psum()
                 v = out.cpu().numpy()[: self.plan.n]
-            self.coll.scope = "setup"
             rels = (torch.stack(rels).cpu().numpy() if rels
                     else np.zeros(0, dtype=np.float32))
             iters = np.asarray(iters, dtype=np.int32)

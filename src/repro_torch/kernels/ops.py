@@ -13,14 +13,23 @@ lanes: the per-lane tensors carry a leading lane dimension, the index tensors
 not count), so a run can show that its path went through the kernels.  The
 serving engine launches from several worker threads, so the counts change
 under ``_launch_lock``.
+
+A wrapper given fake tensors (``torch._subclasses.FakeTensor``: a planning
+run of ``launch.hlo_analysis``, shapes without storage) builds and launches
+nothing and counts nothing in ``launches``: it returns outputs of the
+launch's shapes and hands the launch to the sink that ``planning`` installs,
+with the flops and bytes of PERF.md's kernel table (the terms
+``chip_smoke.py`` divides by for ``bound_ms``).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
-from typing import Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from . import build, ref
 from ..core.incidence import eps_sq
@@ -45,6 +54,54 @@ _SIGNATURES = {
                       + [ctypes.POINTER(_L), _I, _F, _P]),
 }
 _fns: Dict[str, ctypes._CFuncPtr] = {}
+
+
+class PlannedLaunch(NamedTuple):
+    """One launch of a planning run: the kernel, its operands' shapes, and
+    its flops and bytes (each input read once, each output written once)."""
+    name: str
+    shapes: tuple
+    flops: float
+    bytes: float
+
+
+_plan_sink: Optional[Callable[[PlannedLaunch], None]] = None
+
+
+@contextlib.contextmanager
+def planning(sink: Callable[[PlannedLaunch], None]):
+    """Hand every planned launch to ``sink`` while the context is open."""
+    global _plan_sink
+    prev, _plan_sink = _plan_sink, sink
+    try:
+        yield
+    finally:
+        _plan_sink = prev
+
+
+def _fake(*tensors: torch.Tensor) -> bool:
+    return any(isinstance(t, FakeTensor) for t in tensors)
+
+
+def _planned(name: str, inputs, outputs, flops: float):
+    """Record a planned launch of ``name`` and return ``outputs``."""
+    if _plan_sink is not None:
+        nb = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
+        _plan_sink(PlannedLaunch(name, tuple(tuple(t.shape) for t in inputs),
+                                 float(flops), float(nb)))
+    return outputs
+
+
+def flash_flops(bh: int, sq: int, sk: int, d: int, causal: bool) -> int:
+    """The attention forward's flops for its mask: two products of 2·D
+    flops for every (row, key) pair the mask keeps."""
+    if not causal:
+        pairs = sq * sk
+    elif sq <= sk:
+        pairs = sq * (sq + 1) // 2
+    else:
+        pairs = sk * (sk + 1) // 2 + (sq - sk) * sk
+    return 4 * d * bh * pairs
 
 
 def reset_launches() -> None:
@@ -232,7 +289,13 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, diag: torch.Tensor,
              v: torch.Tensor) -> torch.Tensor:
     """ELLPACK SpMV  y = diag⊙v + Σ_lane vals⊙v[cols]  (float32 or bfloat16;
     the CUDA kernel sums in float32).  Batched: ``vals`` (B, n, k), ``diag``
-    and ``v`` (B, n) over one shared ``cols`` (n, k)."""
+    and ``v`` (B, n) over one shared ``cols`` (n, k).  A plan counts every
+    slot as stored (the stored count is the data's)."""
+    if _fake(cols, vals, diag, v):
+        (y,) = _planned("ell_spmv", (cols, vals, diag, v),
+                        (v.new_empty(v.shape),),
+                        2 * vals.numel() + 2 * v.numel())
+        return y
     if _on_cpu(cols, vals, diag, v):
         return ref.ell_spmv_ref(cols, vals, diag, v)
     n, k = cols.shape
@@ -264,7 +327,12 @@ def fused_ell_sweep(cols: torch.Tensor, c_ell: torch.Tensor,
     (halo-extended); its first ``cols.shape[0]`` entries are the row
     voltages.  ε² is squared in float32, as the solver squares it.
     Batched: ``c_ell`` (B, n, k), ``c_s``/``c_t`` (B, n) and ``v`` (B, nv)
-    over one shared ``cols`` (n, k)."""
+    over one shared ``cols`` (n, k).  A plan counts every slot as stored."""
+    if _fake(cols, c_ell, c_s, c_t, v):
+        return _planned("fused_ell_sweep", (cols, c_ell, c_s, c_t, v),
+                        (c_ell.new_empty(c_ell.shape),
+                         *(c_s.new_empty(c_s.shape) for _ in range(3))),
+                        10 * c_ell.numel() + 12 * c_s.numel())
     if _on_cpu(cols, c_ell, c_s, c_t, v):
         return ref.fused_ell_sweep_ref(cols, c_ell, c_s, c_t, v, eps)
     n, k = cols.shape
@@ -299,6 +367,10 @@ _MAX_BS = 48 * 1024 // 4
 
 def block_diag_matvec(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Batched block-diagonal matvec  y[p] = blocks[p] @ x[p]  (float32)."""
+    if _fake(blocks, x):
+        (y,) = _planned("block_diag_matvec", (blocks, x),
+                        (x.new_empty(x.shape),), 2 * blocks.numel())
+        return y
     if _on_cpu(blocks, x):
         return ref.block_diag_matvec_ref(blocks, x)
     p, bs, bs2 = blocks.shape
@@ -327,6 +399,10 @@ def edge_reweight_r(src: torch.Tensor, dst: torch.Tensor, c: torch.Tensor,
     An index outside [0, nv) gathers 0.  ε² is squared in float32.  The
     kernel's variant and grid come from ``_er_plan``, by shape and
     alignment."""
+    if _fake(src, dst, c, v):
+        (r,) = _planned("edge_reweight", (src, dst, c, v),
+                        (c.new_empty(c.shape),), 7 * c.numel())
+        return r
     if _on_cpu(src, dst, c, v):
         return ref.edge_reweight_ref(src, dst, c, v, eps)
     m = src.shape[0]
@@ -408,6 +484,11 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              f"shapes: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
              f"{tuple(v.shape)}, g_per_kv {g_per_kv}")
     _require(k.dtype == v.dtype == q.dtype, "q, k and v must share one dtype")
+    if _fake(q, k, v):
+        return _planned("flash_fwd", (q, k, v),
+                        (q.new_empty(q.shape),
+                         q.new_empty((bh, sq), dtype=torch.float32)),
+                        flash_flops(bh, sq, sk, d, causal))
     if _on_cpu(q, k, v):
         if not four_d:
             return ref.flash_fwd_ref(q, k, v, g_per_kv=g_per_kv,

@@ -123,9 +123,9 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if registry.NOT_PORTED.get(args.arch) == "solver":
-        raise SystemExit("use launch.solve for the solver workload")
     entry = registry.get(args.arch)
+    if entry.family == "solver":
+        raise SystemExit("use launch.solve for the solver workload")
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA card "

@@ -32,8 +32,20 @@ parameters' device, ``n_graphs`` a Python int):
   graph_ids  i32[N], n_graphs            (batched small graphs readout)
   labels     f[...] / i32[...]
 
-``rules``: None or ``sharding.no_sharding()`` change nothing; rules on a
-mesh raise (``gnn_rules`` comes with ROADMAP queue 1, item 7, "Dry runs").
+``rules``: None or ``sharding.no_sharding()`` change nothing.  With rules
+on a mesh (``launch.cells.gnn_rules``: nodes, edges and triplets over every
+axis; parameters replicated) each rank holds its block of the nodes, edges
+and triplets (a batch leaf is a DTensor sharded along dim 0, or a tensor
+every rank holds whole, of which it takes its block; their counts padded to
+multiples of the shards, ``pad_batch``), and the collectives are written
+out where the reference places its sharding constraints: node features are
+all-gathered before an edge gather (``layers.gather_sharded``), sums onto
+nodes (or DimeNet's onto edges) are reduce-scattered back to their blocks
+(``layers.segment_sum_sharded``), a graph readout and the loss's sums are
+all-reduced, and each parameter enters through ``collectives.copy``, whose
+backward all-reduces its gradient.  Index arrays hold global ids.  The
+forward of GCN and MeshGraphNet returns the rank's block of the nodes; the
+losses are the same scalar on every rank.
 """
 from __future__ import annotations
 
@@ -43,9 +55,10 @@ from typing import Any, Optional
 
 import torch
 
+from ..distributed import collectives as C
 from ..train.checkpoint import tree_from_numpy
-from .layers import RowIndex, gather, mlp, segment_sum
-from .sharding import require_no_mesh
+from .layers import (RowIndex, gather, gather_sharded, mlp, segment_sum,
+                     segment_sum_sharded)
 from .transformer import as_torch_dtype
 
 def _randn(gen, shape, device):
@@ -129,6 +142,106 @@ def _cfg_dtypes(cfg, *fields):
 
 
 # ===========================================================================
+# The batch's layout on a mesh
+# ===========================================================================
+
+# the leading dim of each batch leaf (the reference's cells.batch_sharding);
+# the rest lead with nodes, but a graph-level ``labels`` is whole
+_EDGE_LEAVES = ("edge_src", "edge_dst", "edge_mask", "edge_dist",
+                "edge_feat")
+_TRIPLET_LEAVES = ("tri_kj", "tri_ji", "tri_mask", "tri_sbf")
+
+
+class _Graph:
+    """One batch on ``rules``' mesh: this rank's blocks of its leaves
+    (``b``), the global node, edge and triplet counts (``n``, ``e``,
+    ``t``), and the collectives over the shards' axes.  Without a mesh (or
+    on one shard) the blocks are the whole batch and every collective the
+    identity: the one-device program."""
+
+    def __init__(self, batch, rules, graph_labels: bool):
+        from torch.distributed.tensor import DTensor
+
+        mesh = rules.mesh if rules is not None else None
+        self.mesh = mesh
+        self.axes = C._active(mesh, rules.axes("nodes")) if mesh is not None \
+            else ()
+        p = C.mesh_size(mesh, self.axes)
+        self.b = {}
+        for k, v in batch.items():
+            if isinstance(v, DTensor):
+                v = v.to_local()
+            elif (isinstance(v, torch.Tensor) and p > 1
+                  and not (graph_labels and k == "labels")):
+                if v.shape[0] % p:
+                    raise ValueError(f"{k}: {v.shape[0]} rows do not split "
+                                     f"over {p} shards (pad_batch)")
+                v = C._slice(v, mesh, self.axes, 0)
+            self.b[k] = v
+        lead = lambda k: self.b[k].shape[0] * p if k in self.b else 0
+        self.n = lead("node_mask")
+        self.e = lead("edge_src")
+        self.t = lead("tri_kj")
+        self._index = {}
+
+    def index(self, ids, n) -> RowIndex:
+        """The ``RowIndex`` of ``ids`` into ``n`` rows, built once per
+        forward and shared by every layer's gathers and sums over it."""
+        key = (id(ids), n)
+        if key not in self._index:
+            self._index[key] = RowIndex(ids, n)
+        return self._index[key]
+
+    def params(self, tree):
+        """Every parameter leaf through ``collectives.copy`` (identity; the
+        backward all-reduces its gradient over the shards)."""
+        if isinstance(tree, dict):
+            return {k: self.params(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [self.params(v) for v in tree]
+        return C.copy(tree, self.mesh, self.axes)
+
+    def rows(self, x, ids, n):
+        """Rows ``ids`` (global) of a tensor sharded like ids' targets."""
+        return gather_sharded(x, self.index(ids, n), self.mesh, self.axes)
+
+    def sum_to(self, x, ids, n):
+        """Sums of ``x``'s rows onto the ``n`` rows ``ids`` name, this
+        rank's block of them."""
+        return segment_sum_sharded(x, self.index(ids, n), self.mesh,
+                                   self.axes)
+
+    def total(self, x):
+        """A partial sum over this rank's rows, summed over the shards."""
+        return C.reduce(x, self.mesh, self.axes)
+
+
+def pad_batch(batch, p: int):
+    """A batch with its node, edge and triplet counts padded up to
+    multiples of ``p`` (as ``launch.cells.build_gnn_cell`` pads a cell):
+    padded rows carry mask 0, index 0 and zero features, so they change no
+    sum; a graph-level ``labels`` and ``n_graphs`` are kept."""
+    out = dict(batch)
+
+    def pad(k):
+        v = batch[k]
+        extra = -v.shape[0] % p
+        if extra:
+            out[k] = torch.cat([v, v.new_zeros((extra,) + tuple(v.shape[1:]))])
+
+    n = batch["node_mask"].shape[0]
+    for k, v in batch.items():
+        if not isinstance(v, torch.Tensor):
+            continue
+        if k in _EDGE_LEAVES or k in _TRIPLET_LEAVES:
+            pad(k)
+        elif v.shape[0] == n and not (k == "labels" and v.dim() == 1
+                                      and "graph_ids" in batch):
+            pad(k)
+    return out
+
+
+# ===========================================================================
 # GCN  (Kipf & Welling) — n_layers=2, hidden=16, sym norm
 # ===========================================================================
 
@@ -152,37 +265,42 @@ def gcn_init(cfg: GCNConfig, gen: Optional[torch.Generator] = None,
                   for a, b in zip(dims[:-1], dims[1:])]}
 
 
-def gcn_forward(params, batch, cfg: GCNConfig, rules=None):
-    require_no_mesh(rules, "gnn")
-    x = batch["node_feat"].to(cfg.dtype)
-    src, dst = batch["edge_src"], batch["edge_dst"]
-    emask = batch["edge_mask"]
-    n = x.shape[0]
-    by_src, by_dst = RowIndex(src, n), RowIndex(dst, n)
+def _gcn(params, g: _Graph, cfg: GCNConfig):
+    b = g.b
+    x = b["node_feat"].to(cfg.dtype)
+    src, dst = b["edge_src"], b["edge_dst"]
+    emask = b["edge_mask"]
+    n = g.n
     # symmetric normalization with self-loops: Â = D^-1/2 (A + I) D^-1/2
-    deg = segment_sum(emask, by_src)
-    deg = deg + segment_sum(emask, by_dst) + 1.0
+    deg = g.sum_to(emask, src, n) + g.sum_to(emask, dst, n) + 1.0
     dn = torch.rsqrt(deg)
-    coef = (gather(dn, by_src) * gather(dn, by_dst) * emask).to(cfg.dtype)
+    coef = (g.rows(dn, src, n) * g.rows(dn, dst, n) * emask).to(cfg.dtype)
 
-    ws = params["w"]
+    ws = g.params(params)["w"]
     for i, w in enumerate(ws):
         h = x @ w
-        m_fwd = segment_sum(coef[:, None] * gather(h, by_src), by_dst)
-        m_bwd = segment_sum(coef[:, None] * gather(h, by_dst), by_src)
+        m_fwd = g.sum_to(coef[:, None] * g.rows(h, src, n), dst, n)
+        m_bwd = g.sum_to(coef[:, None] * g.rows(h, dst, n), src, n)
         x = m_fwd + m_bwd + dn[:, None] ** 2 * h      # self loop
         if i < len(ws) - 1:
             x = torch.relu(x)
     return x
 
 
+def gcn_forward(params, batch, cfg: GCNConfig, rules=None):
+    """Node logits (on a mesh: this rank's block of the nodes)."""
+    return _gcn(params, _Graph(batch, rules, False), cfg)
+
+
 def gcn_loss(params, batch, cfg: GCNConfig, rules=None):
-    logits = gcn_forward(params, batch, cfg, rules).float()
-    labels = batch["labels"].long()
-    mask = batch["node_mask"]
+    g = _Graph(batch, rules, False)
+    logits = _gcn(params, g, cfg).float()
+    labels = g.b["labels"].long()
+    mask = g.b["node_mask"]
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels[:, None])[:, 0]
-    return ((lse - ll) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return g.total(((lse - ll) * mask).sum()) / \
+        torch.clamp(g.total(mask.sum()), min=1.0)
 
 
 # ===========================================================================
@@ -228,33 +346,37 @@ def rbf_expand(dist, n_rbf, cutoff):
 
 
 def schnet_forward(params, batch, cfg: SchNetConfig, rules=None):
-    require_no_mesh(rules, "gnn")
-    z = batch["node_type"]
-    src, dst = batch["edge_src"], batch["edge_dst"]
-    emask = batch["edge_mask"].to(cfg.dtype)
-    n = z.shape[0]
-    by_src, by_dst = RowIndex(src, n), RowIndex(dst, n)
+    g = _Graph(batch, rules, True)
+    b = g.b
+    z = b["node_type"]
+    src, dst = b["edge_src"], b["edge_dst"]
+    emask = b["edge_mask"].to(cfg.dtype)
+    n = g.n
+    params = g.params(params)
     x = gather(params["embed"], RowIndex(z, cfg.n_atom_types))
-    rbf = rbf_expand(batch["edge_dist"], cfg.n_rbf, cfg.cutoff).to(cfg.dtype)
+    rbf = rbf_expand(b["edge_dist"], cfg.n_rbf, cfg.cutoff).to(cfg.dtype)
 
     for p in _unstack(params["inter"], cfg.n_interactions):
         w = _mlp(p["filter"], rbf, act=_ssp, final_act=True)   # [E, h]
         h = x @ p["in_lin"]
-        m = gather(h, by_src) * w * emask[:, None]
-        agg = segment_sum(m, by_dst)
-        m2 = gather(h, by_dst) * w * emask[:, None]
-        agg = agg + segment_sum(m2, by_src)
+        m = g.rows(h, src, n) * w * emask[:, None]
+        agg = g.sum_to(m, dst, n)
+        m2 = g.rows(h, dst, n) * w * emask[:, None]
+        agg = agg + g.sum_to(m2, src, n)
         v = _mlp(p["out"], agg, act=_ssp)
         x = x + v
     atom_e = _mlp(params["head"], x, act=_ssp)[:, 0]           # [N]
-    atom_e = atom_e * batch["node_mask"]
-    return segment_sum(atom_e, RowIndex(batch["graph_ids"],
-                                        batch["n_graphs"]))
+    atom_e = atom_e * b["node_mask"]
+    return g.total(segment_sum(atom_e, RowIndex(b["graph_ids"],
+                                                batch["n_graphs"])))
 
 
 def schnet_loss(params, batch, cfg: SchNetConfig, rules=None):
     e = schnet_forward(params, batch, cfg, rules).float()
-    return torch.mean((e - batch["labels"]) ** 2)
+    labels = batch["labels"]
+    if hasattr(labels, "to_local"):
+        labels = labels.to_local()
+    return torch.mean((e - labels) ** 2)
 
 
 # ===========================================================================
@@ -331,21 +453,20 @@ def dimenet_forward(params, batch, cfg: DimeNetConfig, rules=None):
     """Directional message passing: messages live on DIRECTED edges j→i;
     triplets (k→j, j→i) couple via the spherical basis and a bilinear
     layer."""
-    require_no_mesh(rules, "gnn")
-    z = batch["node_type"]
-    src, dst = batch["edge_src"], batch["edge_dst"]      # directed j→i
-    emask = batch["edge_mask"].to(cfg.dtype)
-    tmask = batch["tri_mask"].to(cfg.dtype)
-    sbf = batch["tri_sbf"].to(cfg.dtype)                 # [T, sbf_dim]
-    n = z.shape[0]
-    E = src.shape[0]
-    by_src, by_dst = RowIndex(src, n), RowIndex(dst, n)
-    by_kj, by_ji = RowIndex(batch["tri_kj"], E), RowIndex(batch["tri_ji"], E)
+    g = _Graph(batch, rules, True)
+    b = g.b
+    z = b["node_type"]
+    src, dst = b["edge_src"], b["edge_dst"]      # directed j→i
+    emask = b["edge_mask"].to(cfg.dtype)
+    tmask = b["tri_mask"].to(cfg.dtype)
+    sbf = b["tri_sbf"].to(cfg.dtype)                 # [T, sbf_dim]
+    n, E = g.n, g.e
+    params = g.params(params)
 
     x = gather(params["embed"], RowIndex(z, cfg.n_atom_types))
-    rbf = rbf_expand(batch["edge_dist"], cfg.n_radial, cfg.cutoff).to(cfg.dtype)
+    rbf = rbf_expand(b["edge_dist"], cfg.n_radial, cfg.cutoff).to(cfg.dtype)
     m = _mlp(params["edge_embed"],
-             torch.cat([gather(x, by_src), gather(x, by_dst), rbf], dim=-1),
+             torch.cat([g.rows(x, src, n), g.rows(x, dst, n), rbf], dim=-1),
              act=_ssp, final_act=True)                   # [E, h]
     m = m * emask[:, None]
 
@@ -357,26 +478,29 @@ def dimenet_forward(params, batch, cfg: DimeNetConfig, rules=None):
         if cfg.gather_dtype is not None:
             m_rbf = m_rbf.to(cfg.gather_dtype)
         # triplet interaction: gather m on k→j edges, couple with angle basis
-        mk = gather(m_rbf, by_kj).to(cfg.dtype)          # [T, ht]
+        mk = g.rows(m_rbf, b["tri_kj"], E).to(cfg.dtype)    # [T, ht]
         sw = sbf @ p["sbf_lin"]                          # [T, nb]
         t = _triplet_bilinear(mk, p["bilinear"], sw)
         t = t * tmask[:, None]
-        agg = segment_sum(t, by_ji)
+        agg = g.sum_to(t, b["tri_ji"], E)
         if cfg.triplet_bottleneck:
             agg = agg @ p["up"]                          # [E, h]
         m2 = _mlp(p["msg_mlp"], m + agg, act=_ssp, final_act=True)
         m2 = _mlp(p["out_mlp"], m2, act=_ssp) + m        # residual
         m = m2 * emask[:, None]
 
-    node_e = segment_sum(m, by_dst)
-    atom_e = _mlp(params["head"], node_e, act=_ssp)[:, 0] * batch["node_mask"]
-    return segment_sum(atom_e, RowIndex(batch["graph_ids"],
-                                        batch["n_graphs"]))
+    node_e = g.sum_to(m, dst, n)
+    atom_e = _mlp(params["head"], node_e, act=_ssp)[:, 0] * b["node_mask"]
+    return g.total(segment_sum(atom_e, RowIndex(b["graph_ids"],
+                                                batch["n_graphs"])))
 
 
 def dimenet_loss(params, batch, cfg: DimeNetConfig, rules=None):
     e = dimenet_forward(params, batch, cfg, rules).float()
-    return torch.mean((e - batch["labels"]) ** 2)
+    labels = batch["labels"]
+    if hasattr(labels, "to_local"):
+        labels = labels.to_local()
+    return torch.mean((e - labels) ** 2)
 
 
 # ===========================================================================
@@ -431,32 +555,38 @@ def mgn_init(cfg: MeshGraphNetConfig, gen: Optional[torch.Generator] = None,
     }
 
 
-def mgn_forward(params, batch, cfg: MeshGraphNetConfig, rules=None):
-    require_no_mesh(rules, "gnn")
-    src, dst = batch["edge_src"], batch["edge_dst"]
-    emask = batch["edge_mask"].to(cfg.dtype)[:, None]
-    n = batch["node_feat"].shape[0]
-    by_src, by_dst = RowIndex(src, n), RowIndex(dst, n)
-    x = _ln_mlp(params["node_enc"], batch["node_feat"].to(cfg.dtype))
-    e = _ln_mlp(params["edge_enc"], batch["edge_feat"].to(cfg.dtype))
+def _mgn(params, g: _Graph, cfg: MeshGraphNetConfig):
+    b = g.b
+    src, dst = b["edge_src"], b["edge_dst"]
+    emask = b["edge_mask"].to(cfg.dtype)[:, None]
+    n = g.n
+    params = g.params(params)
+    x = _ln_mlp(params["node_enc"], b["node_feat"].to(cfg.dtype))
+    e = _ln_mlp(params["edge_enc"], b["edge_feat"].to(cfg.dtype))
     e = e * emask
 
     for p in _unstack(params["proc"], cfg.n_layers):
-        e2 = _ln_mlp(p["edge"], torch.cat([e, gather(x, by_src),
-                                           gather(x, by_dst)], dim=-1))
+        e2 = _ln_mlp(p["edge"], torch.cat([e, g.rows(x, src, n),
+                                           g.rows(x, dst, n)], dim=-1))
         e2 = (e + e2) * emask
-        agg = segment_sum(e2, by_dst)
+        agg = g.sum_to(e2, dst, n)
         x2 = _ln_mlp(p["node"], torch.cat([x, agg], dim=-1))
         x = x + x2
         e = e2
     return _mlp(params["dec"], x)
 
 
+def mgn_forward(params, batch, cfg: MeshGraphNetConfig, rules=None):
+    """Per-node outputs (on a mesh: this rank's block of the nodes)."""
+    return _mgn(params, _Graph(batch, rules, False), cfg)
+
+
 def mgn_loss(params, batch, cfg: MeshGraphNetConfig, rules=None):
-    out = mgn_forward(params, batch, cfg, rules).float()
-    mask = batch["node_mask"][:, None]
-    return (((out - batch["labels"]) ** 2) * mask).sum() / \
-        torch.clamp(mask.sum() * out.shape[-1], min=1.0)
+    g = _Graph(batch, rules, False)
+    out = _mgn(params, g, cfg).float()
+    mask = g.b["node_mask"][:, None]
+    return g.total((((out - g.b["labels"]) ** 2) * mask).sum()) / \
+        torch.clamp(g.total(mask.sum()) * out.shape[-1], min=1.0)
 
 
 # ===========================================================================

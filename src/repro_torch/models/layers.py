@@ -25,9 +25,12 @@ The GNN and recsys substrate: ``RowIndex`` with ``gather`` and
 ``segment_sum``, the fixed-order counterparts of ``x[idx]`` and
 ``jax.ops.segment_sum`` over rows (each one's backward is the other, so
 neither direction scatters with atomics and a step gives the same bits on
-every run on the card), ``embedding_bag`` (gather plus masked reduce, the
-reference's semantics: ``F.embedding_bag``'s ``mean`` counts padding
-otherwise), ``embedding_bag_ragged`` and ``mlp``.
+every run on the card), ``embedding_bag`` (gather plus the masked reduce
+``bag_reduce``, the reference's semantics: ``F.embedding_bag``'s ``mean``
+counts padding otherwise), ``embedding_bag_ragged`` and ``mlp``.  On a mesh,
+``gather_sharded`` and ``segment_sum_sharded`` do the same over rows
+sharded along dim 0 (an all-gather before the gather, a reduce-scatter
+after the sum: again each one's backward is the other).
 """
 from __future__ import annotations
 
@@ -265,29 +268,37 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len: int,
                      window: Optional[int] = None,
-                     scale: Optional[float] = None) -> torch.Tensor:
+                     scale: Optional[float] = None, row0: int = 0,
+                     mesh=None, axes=()) -> torch.Tensor:
     """Single-step decode: q: [B, 1, H, D] vs cache [B, S, KV, D].
 
     cache_len: the number of valid cache entries (new token position =
     cache_len).  Returns [B, 1, H, D].  The products read the cache in its
     own dtype and sum in float32, as ``preferred_element_type=float32``
     does: the float32 copy is one layer's cache slice, made and dropped per
-    call."""
+    call.  Split-KV: where the cache's sequence is sharded over ``axes`` of
+    ``mesh`` (this rank's block starting at position ``row0``), each rank
+    attends over its own block, and the softmax's max and sum and the
+    output are all-reduced over ``axes`` (no collective without them)."""
+    from ..distributed import collectives as C
+
     B, _, H, D = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
     G = H // KV
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     qr = q.reshape(B, KV, G, D)
     logits = torch.einsum("bkgd,bskd->bkgs", qr.float(), k_cache.float()) * scale
-    pos = torch.arange(S, device=q.device)
+    pos = row0 + torch.arange(S, device=q.device)
     valid = pos[None, :] < cache_len          # attend to the filled prefix
     if window is not None:
         valid = valid & (pos[None, :] >= cache_len - window)
     logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
-    p = torch.softmax(logits, dim=-1)
+    m = C.reduce_max(logits.amax(dim=-1, keepdim=True), mesh, axes)
+    e = torch.exp(logits - m)
+    p = e / C.reduce(e.sum(dim=-1, keepdim=True), mesh, axes)
     out = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(),
                        v_cache.float())
-    return out.reshape(B, 1, H, D).to(q.dtype)
+    return C.reduce(out, mesh, axes).reshape(B, 1, H, D).to(q.dtype)
 
 
 def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
@@ -379,11 +390,12 @@ def _dispatch(x: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
     """x [T, D]'s kept (token, choice) entries in their slots of an
     [n_slots, D] buffer of zeros.  Every kept slot receives exactly one
     entry, so the reference's scatter-add is an indexed assignment here (no
-    atomics)."""
+    atomics); dropped entries go to one spare row past the buffer, cut off
+    after, so every shape is static (no host read of the kept count)."""
     token = torch.arange(x.shape[0] * top_k, device=x.device) // top_k
-    xe = x.new_zeros((n_slots, x.shape[1]))
-    xe[slot[keep]] = x[token[keep]]
-    return xe
+    xe = x.new_zeros((n_slots + 1, x.shape[1]))
+    xe[torch.where(keep, slot, n_slots)] = x[token]
+    return xe[:n_slots]
 
 
 def _combine(ye: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
@@ -627,14 +639,43 @@ def segment_sum(x: torch.Tensor, index: RowIndex) -> torch.Tensor:
     return index.sum_rows(x)
 
 
+def gather_sharded(x: torch.Tensor, index: RowIndex, mesh, axes
+                   ) -> torch.Tensor:
+    """``gather`` of rows of a tensor sharded along dim 0 over ``axes`` of
+    ``mesh`` (``x`` this rank's block, ``index`` global row ids): the
+    blocks all-gathered, then gathered.  Its backward is
+    ``segment_sum_sharded`` of the gradient (the fixed-order sum onto every
+    row, reduce-scattered back to the blocks)."""
+    from ..distributed import collectives as C
+
+    return gather(C.gather(x, mesh, axes, 0), index)
+
+
+def segment_sum_sharded(x: torch.Tensor, index: RowIndex, mesh, axes
+                        ) -> torch.Tensor:
+    """``segment_sum`` onto ``index.n`` rows sharded along dim 0 over
+    ``axes``: this rank's partial sums over all rows, reduce-scattered to
+    its block.  Its backward is ``gather_sharded`` of the gradient."""
+    from ..distributed import collectives as C
+
+    return C.reduce_scatter(segment_sum(x, index), mesh, axes, 0)
+
+
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor,
                   mode: str = "sum") -> torch.Tensor:
     """EmbeddingBag over fixed-width multi-hot bags: table [V, D], ids
-    int[B, W], mask f[B, W] (0 = padding).  A gather plus a masked reduce,
-    as the reference's: ``mean`` divides by the bag's mask sum (at least
-    1), ``max`` fills padding with ``NEG_INF``."""
+    int[B, W], mask f[B, W] (0 = padding).  A gather plus ``bag_reduce``,
+    as the reference's."""
     emb = gather(table, RowIndex(ids, table.shape[0])).reshape(
         ids.shape + table.shape[1:])
+    return bag_reduce(emb, mask, mode)
+
+
+def bag_reduce(emb: torch.Tensor, mask: torch.Tensor,
+               mode: str = "sum") -> torch.Tensor:
+    """The masked reduce of ``embedding_bag`` over looked-up rows emb
+    [B, W, D]: ``mean`` divides by the bag's mask sum (at least 1),
+    ``max`` fills padding with ``NEG_INF``."""
     emb = emb * mask[..., None].to(emb.dtype)
     if mode == "sum":
         return emb.sum(dim=1)

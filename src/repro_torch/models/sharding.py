@@ -138,16 +138,6 @@ def no_sharding() -> ShardingRules:
     return ShardingRules(mesh=None, rules={})
 
 
-def require_no_mesh(rules: Optional[ShardingRules], family: str) -> None:
-    """The GNN and recsys models take ``rules`` without a mesh (None or
-    ``no_sharding()``) and change nothing; their rules on a mesh are not
-    ported yet."""
-    if rules is not None and rules.mesh is not None:
-        raise NotImplementedError(
-            f"{family} models on a mesh ({family}_rules) are not ported yet: "
-            f"ROADMAP.md queue 1, item 7, \"Dry runs\"")
-
-
 # logical-name conventions used across the model zoo:
 #   batch, seq, heads, kv_heads, d_model, d_ff, vocab, experts, expert_cap,
 #   nodes, edges, graph_batch, rows (embedding-table rows), candidates

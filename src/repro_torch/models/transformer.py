@@ -770,22 +770,19 @@ def _decode_attn(x, lp, cfg: LMConfig, plan: _Plan, kind: str, positions,
     """One decode step's self-attention: this token's k/v written into the
     rank's cache blocks in place (where the cache's sequence is over the
     data axes, by the rank that holds the position), attention over the
-    cache gathered whole where it is split along its sequence or d_head."""
+    cache gathered whole along d_head where it is split there.  Where the
+    cache's sequence is split, each rank attends over its own block and
+    ``layers.decode_attention`` merges the blocks (split-KV)."""
     mesh = plan.mesh
     q, k, v, _ = _qkv(x, lp, cfg, plan, positions)
     window = cfg.window if kind == "L" else None
     pos = cache_len if window is None else cache_len % lay.length
-    at = pos
-    if lay.seq:
-        n = kc.shape[1]
-        at = pos - C.mesh_coord(mesh, lay.seq) * n
+    row0 = C.mesh_coord(mesh, lay.seq) * kc.shape[1] if lay.seq else 0
+    at = pos - row0
     if 0 <= at < kc.shape[1]:
         kc[:, at:at + 1] = lay.block(k, plan, seq=False)
         vc[:, at:at + 1] = lay.block(v, plan, seq=False)
     kq, vq = kc, vc
-    if lay.seq:
-        kq = C.gather(kq, mesh, lay.seq, 1, reduce_grad=False)
-        vq = C.gather(vq, mesh, lay.seq, 1, reduce_grad=False)
     if lay.mdim == 3:
         kq = C.gather(kq, mesh, plan.model, 3, reduce_grad=False)
         vq = C.gather(vq, mesh, plan.model, 3, reduce_grad=False)
@@ -793,7 +790,8 @@ def _decode_attn(x, lp, cfg: LMConfig, plan: _Plan, kind: str, positions,
         else cache_len + 1
     out = L.decode_attention(q, _local_kv_heads(kq, cfg, plan),
                              _local_kv_heads(vq, cfg, plan), eff_len,
-                             window=None)
+                             window=None, row0=row0, mesh=mesh,
+                             axes=lay.seq)
     return _attn_out(x, out, lp, plan)
 
 

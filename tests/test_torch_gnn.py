@@ -33,7 +33,6 @@ from repro_torch.configs import registry  # noqa: E402
 from repro_torch.data import graphs  # noqa: E402
 from repro_torch.models import gnn as g  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
-from repro_torch.models.sharding import AbstractMesh, ShardingRules  # noqa: E402
 from repro_torch.models.sharding import no_sharding  # noqa: E402
 from repro_torch.train.checkpoint import named_leaves  # noqa: E402
 from repro_torch.train.optimizer import (AdamWConfig, apply_updates,  # noqa: E402
@@ -374,16 +373,28 @@ def test_fixed_order_gather_and_sum_bits_on_cpu():
 
 
 def test_gnn_rules_without_a_mesh_and_on_a_mesh():
-    """``rules`` without a mesh change nothing; on a mesh they raise,
-    naming the dry runs' bullet (which brings ``gnn_rules``)."""
+    """``rules`` without a mesh change nothing; on a mesh of one rank
+    (``gnn_rules`` on a (1, 1) mesh over a gloo world of one) every
+    collective is the identity, so each arch's loss is the unsharded one
+    bit for bit."""
+    from repro_torch.distributed.collectives import release_world
+    from repro_torch.launch.cells import gnn_rules
+    from repro_torch.launch.mesh import make_host_mesh
+
     jcfg, cfg, _, params, b, ng = _setup("meshgraphnet")
     _, tb = _batches(b, ng)
     base = g.mgn_forward(params, tb, cfg)
     assert torch.equal(g.mgn_forward(params, tb, cfg, no_sharding()), base)
-    mesh = ShardingRules(mesh=AbstractMesh((2,), ("data",)), rules={})
-    for arch in ARCHS:
-        with pytest.raises(NotImplementedError, match="Dry runs"):
-            g.LOSSES[arch](params, tb, cfg, mesh)
+    try:
+        rules = gnn_rules(make_host_mesh((1, 1), device="cpu"))
+        assert rules.axes("nodes") == ("data", "model")
+        for arch in ARCHS:
+            _, cfg, _, params, b, ng = _setup(arch)
+            _, tb = _batches(b, ng)
+            assert torch.equal(g.LOSSES[arch](params, tb, cfg, rules),
+                               g.LOSSES[arch](params, tb, cfg))
+    finally:
+        release_world()
 
 
 # -- data and configs ------------------------------------------------------------

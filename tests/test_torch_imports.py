@@ -205,3 +205,17 @@ def test_port_gnn_and_recsys_modules_stand_alone():
                      "repro_torch.configs.dimenet",
                      "repro_torch.configs.meshgraphnet",
                      "repro_torch.configs.din"}
+
+
+def test_port_dry_run_modules_stand_alone():
+    """The dry runs (the cells, the CLI, the op walker) and the solver's
+    config import with ``jax`` blocked and bring in no ``repro`` module."""
+    probe = _PROBE.replace("print(len(names))", "print(' '.join(names))")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", probe], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    names = set(out.stdout.split())
+    assert names >= {"repro_torch.launch.cells", "repro_torch.launch.dryrun",
+                     "repro_torch.launch.hlo_analysis",
+                     "repro_torch.configs.pirmcut"}

@@ -502,8 +502,17 @@ def test_lm_config_fields_and_defaults_match_jax():
 
 
 def test_unported_archs_raise():
-    with pytest.raises(KeyError, match="ROADMAP.*Dry runs"):
-        registry.get("pirmcut")
+    """Every arch of the reference's registry resolves (``pirmcut`` to the
+    solver family, with the reference's cells and shapes); an unknown one
+    still raises."""
+    from repro.configs import registry as jregistry
+
+    entry = registry.get("pirmcut")
+    assert entry.family == "solver"
+    assert entry.cells == jregistry.get("pirmcut").cells
+    assert entry.shapes == jregistry.get("pirmcut").shapes
+    assert sorted(registry.ARCHS) == sorted(jregistry.ARCHS)
+    assert registry.all_cells(True) == jregistry.all_cells(True)
     with pytest.raises(KeyError, match="unknown arch"):
         registry.get("nope")
     # the GNN and recsys archs are ported: they resolve

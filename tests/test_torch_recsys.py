@@ -31,7 +31,10 @@ from repro_torch.configs import registry  # noqa: E402
 from repro_torch.data import recsys as data  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import recsys as r  # noqa: E402
-from repro_torch.models.sharding import AbstractMesh, ShardingRules  # noqa: E402
+from repro_torch.distributed.collectives import release_world  # noqa: E402
+from repro_torch.launch.cells import din_rules  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.models.sharding import whole  # noqa: E402
 from repro_torch.train.checkpoint import named_leaves  # noqa: E402
 from repro_torch.train.optimizer import AdamWConfig, init_state  # noqa: E402
 from repro_torch.train.train_step import build_train_step  # noqa: E402
@@ -170,8 +173,10 @@ def test_din_retrieval_matches_reference_and_pointwise():
 
 def test_din_param_tree_and_rules():
     """The port's init is the reference's tree (full config on ``meta``:
-    the 100M-row table takes no storage); rules on a mesh raise, naming the
-    dry runs' bullet; a wrong tree is refused."""
+    the 100M-row table takes no storage); ``din_rules`` on a mesh of one
+    rank (a gloo world of one) gives the unsharded logits, loss and scores
+    bit for bit (every collective the identity); a wrong tree is
+    refused."""
     full, jfull = registry.get("din").make_config(), \
         jregistry.get("din").make_config()
     ours = r.din_init(full, None, "meta")
@@ -182,11 +187,15 @@ def test_din_param_tree_and_rules():
     jcfg, cfg, jparams, params = _setup()
     _, tb = _batch(cfg, 4)
     _, rb = _retrieval(cfg, 3)
-    mesh = ShardingRules(mesh=AbstractMesh((2,), ("model",)), rules={})
-    for fn, b in ((r.din_logits, tb), (r.din_loss, tb),
-                  (r.din_retrieval_scores, rb)):
-        with pytest.raises(NotImplementedError, match="Dry runs"):
-            fn(params, b, cfg, mesh)
+    try:
+        rules = din_rules(make_host_mesh((1, 1), device="cpu"))
+        assert rules.axes("rows") == ("model",)
+        for fn, b in ((r.din_logits, tb), (r.din_loss, tb),
+                      (r.din_retrieval_scores, rb)):
+            assert torch.equal(whole(fn(params, b, cfg, rules)),
+                               fn(params, b, cfg))
+    finally:
+        release_world()
     tree = jax.tree.map(np.asarray, jparams)
     tree["attn"]["w"] = tree["attn"]["w"][:-1]
     with pytest.raises(ValueError, match="parameter tree"):
