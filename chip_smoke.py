@@ -139,9 +139,16 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
        ≤ 1e-3) and ``launch.mincut_serve --warm --presolve --drift-sparsity
        0.05`` (every request completed) as subprocesses, their JSON read.
        They run side by side with 12d's ``launch.cut_tree``, 13c's
-       ``launch.solve --backend sharded`` and 18c's two ``launch.train``
-       runs (each phase checks its own), and the run waits for all six
-       before it goes on.
+       ``launch.solve --backend sharded``, 18c's two ``launch.train``
+       runs (each phase checks its own) and the four scripts of
+       ``examples/torch/`` on the card: ``quickstart.py``,
+       ``segmentation.py`` and ``flow_improve_sequence.py`` as they are
+       (exit 0, every two-level δ they print within 1e-3; quickstart
+       asserts its own), ``train_lm.py --steps 40`` (exit 0, step 40
+       reached with a finite loss; its checkpoints deleted after).  All
+       ten start with phase 11 and run beside 11a–c; the run waits for
+       them after 11c, and logs the wall the examples add to the slowest
+       of the other six.
 
 12. Cut trees, through ``edge_reweight`` (the cut-tree default config with
     ``use_pallas``: one launch per IRLS iteration of every ``solve_batch``
@@ -159,22 +166,23 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
     b. At side 6 in batches of up to 8, under deterministic algorithms,
        builds on the kernel route, the plain route and the kernel route
        again: the three trees equal (parent, weight, stored sides,
-       acceptance order).
+       acceptance order).  In a process of its own beside 12a.
     c. At side 8, where Dinic is cheap: the exact tree; Gomory–Hu (all
        pairs at the exact tree's, rel 1e-9); a 1% drift (σ 0.05) repaired
        exactly (rel 1e-9 of a fresh exact build, some edges reused) and by
        IRLS in tests/test_drift.py's strong config (rel 1e-6).
     d. ``CutTreeService`` (IRLS, refined) on 12c's instance: the first
-       query builds, and a fresh service builds the same tree again (equal
-       parent, weight, sides and acceptance order: no atomics on the
-       path); every tree edge at its pair's Dinic cut (rel 1e-9), every
+       query builds, and a fresh service in a process of its own (started
+       beside 12a) builds the same tree again (equal parent, weight, sides
+       and acceptance order through the tree's JSON form: no atomics on
+       the path); every tree edge at its pair's Dinic cut (rel 1e-9), every
        pair at most its exact cut (the pairs more than 1e-3 below it
        logged), the global min cut within rel 1e-3; the next 1,000 hit the
        cache, the drift is ``"repaired"`` (rel 1e-9 of the fresh build),
        the same weights again ``"unchanged"``; then ``launch.cut_tree
        --side 8 --solver irls --refine --verify-pairs 25``
        (verify_max_rel ≤ 1e-3; run in 11d) and ``launch.obs`` on 12a's
-       sink as subprocesses.
+       sink (started when 12a ends) as subprocesses.
 
 13. The sharded solver (``distributed.solver.ShardedSolver``).
     a. A world of one over NCCL (the solver initializes it) at full width:
@@ -192,7 +200,9 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
        schedules and the int8 halo: cuts equal to 13a's world one (rel
        1e-5, two-level), launches and collectives per CG step as in 13a,
        the int8 halo under 0.4× the halo's bytes and the halo under 0.7×
-       psum's, each rank's kernels held at its shard's shapes.
+       psum's, each rank's kernels held at its shard's shapes.  The ranks
+       start with phase 13 and run beside 13a (their walls, and 13a's,
+       are taken beside each other).
     c. ``launch.solve --backend sharded`` as a subprocess (world of one;
        run in 11d).
 
@@ -237,12 +247,14 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
        lookups; wall, solves/s and the delta refill's counts.
     b. The sharded server over four spawned ranks on the one card (gloo
        over CUDA tensors, 13b's spawn, a timeout on every rank): rank 0
-       serves a burst of 4 at 48³ in the server's default config with
+       serves a burst of 4 at 32³ in the server's default config with
        ``use_pallas`` and the halo sweep unfused (the build that runs
        ``edge_reweight`` on each shard), ranks 1–3 run ``follow_sharded``.
        The served two-level cuts equal a world-one sharded session's on
        the same weights (rel 1e-5); ``edge_reweight`` once per IRLS
-       iteration a rank; every follower leaves its loop on shutdown.
+       iteration a rank; every follower leaves its loop on shutdown.  The
+       ranks start with phase 15 and run beside 15a and the world-one
+       session.
     c. The perf gate: phase 4's host solve with ``profile=True`` on the
        kernel route and the plain route: the same count (the terms, and
        the totals at each route's PCG trace), at most 1.05× the card's
@@ -373,13 +385,25 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
        the four ranks, MESH_DIN_CHECKED sampled scores within 2e-4 of
        ``din_logits`` on the tiled batch.
     b. The planner against the card (``plan_worker``, on fake CUDA tensors
-       in two processes started when phase 11's CLIs end, beside phases
-       12–18: ~45 s of host time):
+       in processes started when phase 16 starts, beside the card-bound
+       phases 16–18: ~45 s of host time each):
        16b's step and 18b's DIN step planned at a world of one, each
        planned peak within 20% of the peak the phase measured; 17b's
        sharded step planned on a fake (2, 2) world, its collective census
        equal to the one rank 0 recorded in 17b.  The card's name and
        ``total_memory`` are logged (``hlo_analysis.CARD_TOTAL_MEMORY``).
+       13b's fused-halo solve planned on a fake world of four
+       (``ShardedSolver.lower``, fake CPU tensors, in a third process):
+       the fixed config's census and launches equal to those rank 0
+       recorded in 13b; then with ``irls_tol=1e-3, adaptive_tol=True``,
+       and once more with ``reweight_clamp=True``: plans marked
+       ``"upper"``, every PCG at its K steps, the collectives per CG step
+       as the CPU tests hold them for the adaptive PCG (calls as 13b's,
+       ``dot2``'s pair 4 bytes over 13b's r·z), per IRLS iteration 13b's
+       (the fractional cut's all-reduce in place of the fixed PCG's last
+       r·r, which ``dot2`` fuses) plus the clamp's all-reduce, one more
+       halo exchange for the last fractional cut, and one
+       ``fused_ell_sweep`` launch per IRLS iteration.
     c. ``python -m repro_torch.launch.dryrun`` for one cell a family on the
        single-pod mesh (qwen2-1.5b train_4k, gcn-cora ogb_products, din
        train_batch, pirmcut road_asia), started with 19b's processes:
@@ -457,9 +481,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-# every CLI subprocess started by start_clis; any still running when the
-# script exits (a phase failed while they ran) is killed then
+# every CLI subprocess started by start_clis and every rank spawned by
+# start_ranks; any still running when the script exits (a phase failed
+# while they ran) is killed then
 _CLIS: list = []
+_RANKS: list = []
 
 
 @atexit.register
@@ -468,6 +494,18 @@ def _stop_clis():
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+    for proc in _RANKS:
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+
+
+def _stamp_exit(c: dict) -> None:
+    """Waits for the process of ``c`` (a ``start_clis`` entry) and keeps
+    the time it exited, so that ``finish_clis`` reads its seconds however
+    late it is called."""
+    c["proc"].wait()
+    c["t1"] = time.perf_counter()
 
 
 def start_clis(runs: dict, out_dir: Path) -> dict:
@@ -476,6 +514,7 @@ def start_clis(runs: dict, out_dir: Path) -> dict:
     Each writes its standard output and error to ``chip_smoke_{name}.log``
     and ``.err`` under ``out_dir`` (files, so that no pipe fills)."""
     import os
+    import threading
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     started = {}
@@ -488,12 +527,15 @@ def start_clis(runs: dict, out_dir: Path) -> dict:
         _CLIS.append(proc)
         started[name] = dict(proc=proc, t0=time.perf_counter(),
                              timeout=timeout, out=out, err=err)
+        threading.Thread(target=_stamp_exit, args=(started[name],),
+                         daemon=True).start()
     return started
 
 
 def finish_clis(started: dict) -> dict:
     """Waits for the CLIs of ``start_clis``.  Returns, by name, the seconds
-    from the start to the exit (the CLIs ran side by side on the card),
+    from the start to the exit (the CLIs ran side by side on the card;
+    ``_stamp_exit`` keeps the exit's time),
     the exit code, the standard output and the end of the error; raises
     if one exits non-zero or outlives its timeout (then killed)."""
     done = {}
@@ -502,7 +544,7 @@ def finish_clis(started: dict) -> dict:
             if name in done:
                 continue
             rc = c["proc"].poll()
-            secs = time.perf_counter() - c["t0"]
+            secs = c.get("t1", time.perf_counter()) - c["t0"]
             if rc is None and secs <= c["timeout"]:
                 continue
             if rc is None:
@@ -528,6 +570,16 @@ def box_labels(side: int, box: int = 8):
     z, y, x = idx // (side * side), (idx // side) % side, idx % side
     nb = -(-side // box)
     return (z // box) * nb * nb + (y // box) * nb + x // box, nb ** 3
+
+
+def main_cfg(n_blocks: int, n_irls: int):
+    """Phase 4's config: the fused ELL path through the kernels, block
+    Jacobi by explicit inverses."""
+    from repro_torch.core import IRLSConfig
+
+    return IRLSConfig(layout="ell", fuse_edge_sweep=True, use_pallas=True,
+                      precond="block_jacobi", explicit_block_inverse=True,
+                      n_blocks=n_blocks, n_irls=n_irls)
 
 
 def segmentation_grid(side: int, seed: int):
@@ -2074,6 +2126,16 @@ def presolve_phase(seed: int, side: int = ROAD_SIDE):
                              seconds=t_small))
 
 
+# 11d: the scripts of examples/torch/, and train_lm.py's steps on the card
+EXAMPLES = ("quickstart", "segmentation", "flow_improve_sequence", "train_lm")
+EXAMPLE_TRAIN_STEPS = 40
+# the two-level δ each solver example prints (quickstart's gap, the
+# segmentation's two-level line, each FlowImprove iteration's)
+EXAMPLE_DELTA = {"quickstart": r"^relative gap δ\s*:\s*(\S+)$",
+                 "segmentation": r"^two-level cut: \S+ \(δ=(\S+)\)$",
+                 "flow_improve_sequence": r"^iter \d+: cut=\s*\S+ δ=\s*(\S+) "}
+
+
 def cli_runs(out_dir: Path) -> dict:
     """The six CLIs that phases 11d, 12d, 13c and 18c hold, as
     ``start_clis`` takes them: they run side by side on the card in phase
@@ -2110,16 +2172,72 @@ def cli_runs(out_dir: Path) -> dict:
 }
 
 
-def plan_runs(out_dir: Path) -> dict:
+def example_runs(out_dir: Path) -> dict:
+    """The four scripts of ``examples/torch/`` as ``start_clis`` takes
+    them, on the card (their default device), started with phase 11's
+    CLIs; ``examples_phase`` checks them."""
+    import shutil
+
+    runs = {}
+    for name in EXAMPLES:
+        args = [str(Path("examples") / "torch" / f"{name}.py")]
+        if name == "train_lm":          # a fresh run: no checkpoint to resume
+            d = out_dir / "chip_smoke_example_train_lm_ckpt"
+            shutil.rmtree(d, ignore_errors=True)
+            args += ["--steps", str(EXAMPLE_TRAIN_STEPS), "--ckpt-dir", str(d)]
+        runs["example_" + name] = (args, 300)
+    return runs
+
+
+def examples_phase(clis: dict, out_dir: Path) -> dict:
+    """Phase 11d's examples: each exited 0 (``finish_clis`` held that);
+    every two-level δ the solver examples print within 1e-3 (quickstart
+    asserts its own); ``train_lm.py`` reached its last step with a finite
+    loss.  Its checkpoints (~1.2 GB each) are deleted after."""
+    import math
+    import re
+    import shutil
+
+    out, fails = {}, []
+    for name in EXAMPLES:
+        c = clis["example_" + name]
+        text = c["stdout"]
+        rec = out[name] = dict(seconds=c["seconds"])
+        if name == "train_lm":
+            steps = re.findall(r"^step\s+(\d+)\s+loss (\S+)", text, re.M)
+            rec["steps"], rec["loss"] = ((int(steps[-1][0]),
+                                          float(steps[-1][1]))
+                                         if steps else (0, math.nan))
+            log(f"[examples] train_lm: {c['seconds']:.1f} s, step "
+                f"{rec['steps']} loss {rec['loss']!r}; last line: "
+                f"{text.strip().splitlines()[-1]}")
+            if not (rec["steps"] == EXAMPLE_TRAIN_STEPS
+                    and math.isfinite(rec["loss"])):
+                fails.append(f"train_lm: {text[-1000:]}")
+            continue
+        rec["delta"] = [float(d) for d in
+                        re.findall(EXAMPLE_DELTA[name], text, re.M)]
+        log(f"[examples] {name}: {c['seconds']:.1f} s, two-level δ "
+            f"{rec['delta']} (tolerance 1e-3)")
+        if not rec["delta"] or not all(abs(d) <= 1e-3 for d in rec["delta"]):
+            fails.append(f"{name}: {text[-1000:]}")
+    shutil.rmtree(out_dir / "chip_smoke_example_train_lm_ckpt",
+                  ignore_errors=True)
+    if fails:
+        raise AssertionError("examples: " + "; ".join(fails))
+    return out
+
+
+def plan_runs(out_dir: Path, seed: int) -> dict:
     """Phase 19's planning processes, as ``start_clis`` takes them: the
-    dryrun CLI on DRYRUN_CELLS (19c) and ``plan_worker`` in two processes
+    dryrun CLI on DRYRUN_CELLS (19c) and ``plan_worker`` in three processes
     (19b).  They need host time only (~45 s each at most on the card's
-    host), so they start when phase 11's CLIs end and run beside phases
-    12–18."""
+    host), so they start with phase 16 and run beside the card-bound
+    phases 16–18."""
     def worker(names):
         path = str(out_dir / f"chip_smoke_plans_{'_'.join(names)}.json")
         return (["-c", f"import chip_smoke; chip_smoke.plan_worker({path!r}, "
-                 f"{names!r})"], 600)
+                 f"{names!r}, {seed})"], 600)
 
     return {**{f"dryrun_{arch}": (["-m", "repro_torch.launch.dryrun",
                                    "--arch", arch, "--cell", cell, "--mesh",
@@ -2127,7 +2245,8 @@ def plan_runs(out_dir: Path) -> dict:
                                    str(out_dir / "dryrun_torch")], 600)
                for arch, cell in DRYRUN_CELLS},
             "plan_16b": worker(("16b",)),
-            "plan_18b_17b": worker(("18b", "17b"))}
+            "plan_18b_17b": worker(("18b", "17b")),
+            "plan_13b": worker(("13b",))}
 
 
 def cli_phase(clis: dict, out_dir: Path):
@@ -2435,6 +2554,25 @@ def cuttree_route_phase(side: int, seed: int):
                 n_solves=kern.meta["n_solves"], n_waves=kern.meta["n_waves"])
 
 
+def route_worker(path: str, side: int, seed: int) -> None:
+    """12b in a process of its own, beside 12a (``route_run``): writes
+    ``cuttree_route_phase``'s record to ``path``; a failed check raises,
+    and the process exits non-zero."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    Path(path).write_text(json.dumps(cuttree_route_phase(side, seed)))
+
+
+def route_run(out_dir: Path, side: int, seed: int) -> dict:
+    """``route_worker`` as ``start_clis`` takes it."""
+    path = str(out_dir / "chip_smoke_cuttree_route.json")
+    return {"cuttree_route": (["-c", f"import chip_smoke; chip_smoke."
+                                     f"route_worker({path!r}, {side}, "
+                                     f"{seed})"], 600)}
+
+
 def cuttree_exact_phase(side: int, seed: int):
     """Phase 12c: at a side where Dinic is cheap, the exact tree,
     Gomory–Hu, and both repairs of a 1% drift against a fresh exact build.
@@ -2494,41 +2632,81 @@ def cuttree_exact_phase(side: int, seed: int):
     return record, (inst, exact, c_new, fresh)
 
 
+def refined_worker(path: str, side: int, seed: int) -> None:
+    """12d's second refined build, by a fresh ``CutTreeService`` in a
+    process of its own (``refined_run``), beside phase 12's other builds:
+    writes the tree to ``path``; a wrong launch count raises, and the
+    process exits non-zero."""
+    import torch
+
+    from repro_torch.serve import CutTreeService
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    inst = cuttree_instance(side, seed)
+    cfg = kernel_cfg()
+    svc = CutTreeService(cfg=cfg, solver="irls", refine=True, device="cuda")
+    key = svc.register(inst)
+    tree, _, _ = built_tree(
+        "service: the same refined tree again, in a process of its own",
+        lambda: (svc.min_cut(key, 0, inst.n - 1), svc.tree(key))[1],
+        cfg.n_irls)
+    tree.save(path)
+
+
+def refined_run(out_dir: Path, side: int, seed: int) -> dict:
+    """``refined_worker`` as ``start_clis`` takes it."""
+    path = str(out_dir / "chip_smoke_refined_tree.json")
+    return {"cuttree_refined": (["-c", f"import chip_smoke; chip_smoke."
+                                       f"refined_worker({path!r}, {side}, "
+                                       f"{seed})"], 600)}
+
+
+def obs_run(sink) -> dict:
+    """12d's ``launch.obs`` on 12a's sink, as ``start_clis`` takes it."""
+    return {"obs": (["-m", "repro_torch.launch.obs", str(sink)], 600)}
+
+
 def cuttree_service_phase(ctx, seed: int, sink: str, out_dir: Path,
-                          cut_tree_cli: dict):
+                          cut_tree_cli: dict, obs=None, refined_second=None):
     """Phase 12d: ``CutTreeService`` on 12c's instance through the kernel:
     the first query builds the refined IRLS tree (built twice, the second
-    time by a fresh service: the same tree; held against Dinic edge
-    by edge and against 12c's exact tree on every pair), the next 1,000
-    hit the cache, the drift is repaired, the same weights again leave it
-    unchanged; then the cut_tree and obs CLIs as subprocesses."""
-    import os
-
+    time by a fresh service in a process of its own: the same tree; held
+    against Dinic edge by edge and against 12c's exact tree on every
+    pair), the next 1,000 hit the cache, the drift is repaired, the same
+    weights again leave it unchanged; then the cut_tree and obs CLIs as
+    subprocesses.  ``obs`` and ``refined_second``: the obs CLI and
+    ``refined_worker`` as ``start_clis`` started them, else started
+    here."""
     import numpy as np
 
+    from repro_torch.cuttree.tree import CutTree
     from repro_torch.serve import CutTreeService
 
     inst, exact, c_new, fresh = ctx
     cfg = kernel_cfg()
+    second = refined_second or start_clis(
+        refined_run(out_dir, EXACT_SIDE, seed), out_dir)
     svc = CutTreeService(cfg=cfg, solver="irls", refine=True, device="cuda")
     key = svc.register(inst)
     refined, t_build, launched = built_tree(
         "service: first query, a refined IRLS tree",
         lambda: (svc.min_cut(key, 0, inst.n - 1), svc.tree(key))[1],
         cfg.n_irls)
-    # the repair: built again by a fresh service, the refined tree is the
-    # same (no atomics in the solves' scatters or the sweep rounding)
-    svc2 = CutTreeService(cfg=cfg, solver="irls", refine=True, device="cuda")
-    key2 = svc2.register(inst)
-    twice, _, _ = built_tree(
-        "service: the same refined tree again",
-        lambda: (svc2.min_cut(key2, 0, inst.n - 1), svc2.tree(key2))[1],
-        cfg.n_irls)
-    log(f"[cuttree] refined tree built twice: equal {same_tree(refined, twice)}"
-        f" (parent, weight, sides, acceptance order)")
-    if not same_tree(refined, twice):
+    # built again by a fresh service, the refined tree is the same (no
+    # atomics in the solves' scatters or the sweep rounding); both compared
+    # through the JSON form the second one crossed the process in
+    done = finish_clis(second)["cuttree_refined"]
+    for line in done["stdout"].strip().splitlines():
+        log(line)
+    twice = CutTree.load(str(out_dir / "chip_smoke_refined_tree.json"))
+    equal = same_tree(CutTree.from_dict(json.loads(json.dumps(
+        refined.to_dict()))), twice)
+    log(f"[cuttree] refined tree built twice: equal {equal} (parent, "
+        f"weight, sides, acceptance order)")
+    if not equal:
         raise AssertionError("the refined tree differs between two builds")
-    del svc2, twice
+    del twice
     t = time.perf_counter()
     edge_rel = max(abs(w - dinic_pair(inst, i, p)) / abs(w)
                    for i, p, w in refined.edges())
@@ -2580,19 +2758,10 @@ def cuttree_service_phase(ctx, seed: int, sink: str, out_dir: Path,
                                                       "stdout")}}
     log(f"[cli] cut_tree: {clis['cut_tree']['seconds']:.1f} s beside 11d's "
         f"CLIs; {clis['cut_tree']['stdout'].strip().splitlines()[-1]}")
-    t = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.obs",
-                           sink], cwd=ROOT,
-                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
-                          capture_output=True, text=True, timeout=600)
-    clis["obs"] = dict(seconds=time.perf_counter() - t, rc=proc.returncode,
-                       stdout=proc.stdout)
-    (out_dir / "chip_smoke_obs.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise AssertionError(f"obs CLI exited {proc.returncode}: "
-                             f"{proc.stderr[-2000:]}")
-    log(f"[cli] obs: {clis['obs']['seconds']:.1f} s; "
-        f"{proc.stdout.strip().splitlines()[0]}")
+    done = finish_clis(obs or start_clis(obs_run(sink), out_dir))["obs"]
+    clis["obs"] = {k: done[k] for k in ("seconds", "rc", "stdout")}
+    log(f"[cli] obs: {done['seconds']:.1f} s (from 12a's end); "
+        f"{done['stdout'].strip().splitlines()[0]}")
     got = json.loads(path.read_text())
     log(f"[cli] cut_tree: verify_max_rel {got['verify_max_rel']:.2e} "
         f"(tolerance 1e-3), {got['meta']['n_solves']} solves")
@@ -2644,6 +2813,12 @@ SHARD_STEP_OPS = {"halo": {"all_gather": 1.0, "all_reduce": 2.0,
 def shard_cfg(cfg, fuse: bool = True):
     """Phase 4's kernel config at phase 13's depth."""
     return dataclasses.replace(cfg, n_irls=SHARD_IRLS, fuse_edge_sweep=fuse)
+
+
+def ranks_cfg(cfg):
+    """13b's config: ``shard_cfg`` with a block a box of the 48³ grid."""
+    _, p4 = box_labels(SHARD_SIDE)
+    return shard_cfg(dataclasses.replace(cfg, n_blocks=p4))
 
 
 def step_ops(stats) -> dict:
@@ -2884,57 +3059,83 @@ def _sharded_rank(rank: int, store: str, out_path: str, seed: int,
     dist.destroy_process_group()
 
 
-def run_ranks(target, out_path: Path, args: tuple,
-              timeout_s: float = 600) -> float:
-    """``target(rank, store, out_path, *args)`` in SHARD_RANKS spawned
+def start_ranks(target, out_path: Path, args: tuple) -> dict:
+    """Spawns ``target(rank, store, out_path, *args)`` in SHARD_RANKS
     processes on the one card (one intra-op thread each: they share the
-    host), rendezvousing through a FileStore; every rank that outlives
-    ``timeout_s`` is killed, and a killed rank or a non-zero exit fails
-    the phase.  Returns the wall seconds."""
+    host), rendezvousing through a FileStore; ``join_ranks`` waits for
+    them, so the caller can work beside them."""
     import multiprocessing as mp
     import os
     import tempfile
 
     ctx = mp.get_context("spawn")
     out_path.unlink(missing_ok=True)
+    tmp = tempfile.mkdtemp()
     env_before = os.environ.get("OMP_NUM_THREADS")
     os.environ["OMP_NUM_THREADS"] = "1"      # four ranks share the host
-    t = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
+    try:
         procs = [ctx.Process(target=target,
                              args=(r, os.path.join(tmp, "store"),
                                    str(out_path)) + tuple(args))
                  for r in range(SHARD_RANKS)]
         for p in procs:
             p.start()
-        deadline = time.perf_counter() + timeout_s
-        for p in procs:
-            p.join(max(1.0, deadline - time.perf_counter()))
-        alive = [p for p in procs if p.is_alive()]
-        for p in alive:
-            p.kill()
-            p.join()
-    if env_before is None:
-        os.environ.pop("OMP_NUM_THREADS")
-    else:
-        os.environ["OMP_NUM_THREADS"] = env_before
+    finally:
+        if env_before is None:
+            os.environ.pop("OMP_NUM_THREADS")
+        else:
+            os.environ["OMP_NUM_THREADS"] = env_before
+    _RANKS.extend(procs)
+    return dict(name=target.__name__, procs=procs, tmp=tmp,
+                t0=time.perf_counter())
+
+
+def join_ranks(started: dict, timeout_s: float = 600) -> float:
+    """Waits for ``start_ranks``' processes: every rank that outlives
+    ``timeout_s`` from its start is killed, and a killed rank or a non-zero
+    exit fails the phase.  Returns the wall seconds from the start."""
+    import shutil
+
+    procs = started["procs"]
+    deadline = started["t0"] + timeout_s
+    for p in procs:
+        p.join(max(1.0, deadline - time.perf_counter()))
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join()
+    shutil.rmtree(started["tmp"], ignore_errors=True)
     codes = [p.exitcode for p in procs]
     if alive or any(c != 0 for c in codes):
-        raise AssertionError(f"{target.__name__} ranks exited {codes} "
+        raise AssertionError(f"{started['name']} ranks exited {codes} "
                              f"({len(alive)} killed at the deadline)")
-    return time.perf_counter() - t
+    return time.perf_counter() - started["t0"]
 
 
-def sharded_ranks_phase(cfg, world_one: dict, seed: int, out_dir: Path):
+def run_ranks(target, out_path: Path, args: tuple,
+              timeout_s: float = 600) -> float:
+    """``start_ranks`` then ``join_ranks``: the wall seconds."""
+    return join_ranks(start_ranks(target, out_path, args), timeout_s)
+
+
+def start_sharded_ranks(cfg, seed: int, out_dir: Path) -> dict:
+    """13b's ranks (``start_ranks``), started before 13a so that they run
+    beside it."""
+    return start_ranks(_sharded_rank, out_dir / "chip_smoke_sharded4.json",
+                       (seed, ranks_cfg(cfg)))
+
+
+def sharded_ranks_phase(cfg, world_one: dict, seed: int, out_dir: Path,
+                        started=None):
     """Phase 13b: a world of four ranks on the one card at 48³ (spawned
     processes, gloo over CUDA tensors: NCCL refuses two ranks on one
     device), both schedules and the int8 halo; cuts against 13a's world
     one (rel 1e-5), collectives per CG step as in the CPU tests, each
-    rank's kernels held at its shard's shapes."""
-    _, p4 = box_labels(SHARD_SIDE)
-    cfg4 = shard_cfg(dataclasses.replace(cfg, n_blocks=p4))
+    rank's kernels held at its shard's shapes.  ``started``: the ranks as
+    ``start_sharded_ranks`` started them (else started here)."""
+    cfg4 = ranks_cfg(cfg)
     out_path = out_dir / "chip_smoke_sharded4.json"
-    wall = run_ranks(_sharded_rank, out_path, (seed, cfg4))
+    wall = join_ranks(started or start_sharded_ranks(cfg, seed, out_dir))
     got = json.loads(out_path.read_text())
     for route, (schedule, comp) in SHARD_RANK_ROUTES.items():
         r = got[route]
@@ -2989,8 +3190,9 @@ def sharded_cli_phase(cli: dict, out_dir: Path):
 
 def sharded_phase(inst, labels, cfg, host_cut: float, seed: int,
                   out_dir: Path, cli: dict) -> dict:
-    """Phase 13: 13a, 13b and 13c; the world of one is taken down after
-    13a, before the ranks of 13b start.  The solver's float32 sentinel
+    """Phase 13: 13a, 13b and 13c; 13b's ranks (spawned processes with a
+    group of their own) run beside 13a, and 13a's world of one is taken
+    down after it.  The solver's float32 sentinel
     warns on every solve here (eps = 1e-6 is below float32's reach at
     these weights, as on the host path), so its warning is muted."""
     import warnings
@@ -2999,12 +3201,14 @@ def sharded_phase(inst, labels, cfg, host_cut: float, seed: int,
     from repro_torch.distributed.solver import Float32DivergenceWarning
 
     t = time.perf_counter()
+    ranks = start_sharded_ranks(cfg, seed, out_dir)    # 13b beside 13a
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", Float32DivergenceWarning)
         out = {"world_one": sharded_world_one_phase(inst, labels, cfg,
                                                     host_cut, seed)}
     release_world()
-    out["ranks"] = sharded_ranks_phase(cfg, out["world_one"], seed, out_dir)
+    out["ranks"] = sharded_ranks_phase(cfg, out["world_one"], seed, out_dir,
+                                       ranks)
     out["cli"] = sharded_cli_phase(cli, out_dir)
     out["seconds"] = time.perf_counter() - t
     log(f"[sharded] phase 13 in {out['seconds']:.1f} s")
@@ -3573,13 +3777,22 @@ def _served_rank(rank: int, store: str, out_path: str, seed: int,
     dist.destroy_process_group()
 
 
+def start_served_ranks(seed: int, out_dir: Path,
+                       side: int = SHARD_SERVE_SIDE) -> dict:
+    """15b's ranks (``start_ranks``), started before 15a so that they run
+    beside 15a and 15b's world of one."""
+    return start_ranks(_served_rank, out_dir / "chip_smoke_served4.json",
+                       (seed, side))
+
+
 def sharded_ranks_server_phase(seed: int, out_dir: Path,
-                               side: int = SHARD_SERVE_SIDE):
+                               side: int = SHARD_SERVE_SIDE, started=None):
     """Phase 15b: the sharded server over four spawned ranks on the one card
     (gloo over CUDA tensors, 13b's spawn), rank 0 serving a burst at
-    ``side``³ and ranks 1–3 following; first the same burst
-    through a world-one sharded session on the same config, whose two-level
-    cuts the served ones must equal (rel 1e-5)."""
+    ``side``³ and ranks 1–3 following; the same burst through a world-one
+    sharded session on the same config, whose two-level cuts the served
+    ones must equal (rel 1e-5).  ``started``: the ranks as
+    ``start_served_ranks`` started them (else started here)."""
     import warnings
 
     from repro_torch.core import MinCutSession, Problem
@@ -3599,7 +3812,8 @@ def sharded_ranks_server_phase(seed: int, out_dir: Path,
     release_world()
     del sess
     out_path = out_dir / "chip_smoke_served4.json"
-    wall = run_ranks(_served_rank, out_path, (seed, side), timeout_s=400)
+    wall = join_ranks(started or start_served_ranks(seed, out_dir, side),
+                      timeout_s=400)
     ranks = [json.loads(Path(f"{out_path}.{r}").read_text())
              for r in range(SHARD_RANKS)]
     head = ranks[0]
@@ -5343,6 +5557,12 @@ MESH_DIN_B = 8192
 MESH_DIN_CANDIDATES, MESH_DIN_CHECKED = 65536, 512
 # 19b: a planned peak against the peak the phase measured
 PLAN_PEAK_RTOL = 0.2
+# 19b: 13b's fused-halo config as it ran, then planned with the adaptive
+# schedule and with the clamp added
+PLAN_13B = {"fixed": {},
+            "adaptive": dict(irls_tol=1e-3, adaptive_tol=True),
+            "adaptive_clamp": dict(irls_tol=1e-3, adaptive_tol=True,
+                                   reweight_clamp=True)}
 # 19c: one cell a family through the dryrun CLI on the single-pod mesh
 DRYRUN_CELLS = (("qwen2-1.5b", "train_4k"), ("gcn-cora", "ogb_products"),
                 ("din", "train_batch"), ("pirmcut", "road_asia"))
@@ -5581,11 +5801,44 @@ def mesh_models_phase(seed: int, gnn_ref: dict, out_dir: Path):
                               for k in ("gnn", "din")})
 
 
-def plan_worker(path: str, names=("16b", "18b", "17b")) -> None:
+def plan_13b(seed: int) -> dict:
+    """19b's plans of 13b's fused-halo solve (its instance, labels and
+    config) on a fake world of four, fake CPU tensors: the fixed config and
+    each of PLAN_13B's; the plans are built once and shared."""
+    from repro_torch.distributed.solver import ShardedSolver
+    from repro_torch.launch.mesh import make_plan_mesh, release_plan_world
+
+    t = time.perf_counter()
+    inst = segmentation_grid(SHARD_SIDE, seed)
+    labels, _ = box_labels(SHARD_SIDE)
+    base = ranks_cfg(main_cfg(1, SHARD_IRLS))
+    out, plans = {}, None
+    try:
+        make_plan_mesh((SHARD_RANKS,), ("shard",), device="cpu")
+        for tag, extra in PLAN_13B.items():
+            solver = ShardedSolver(inst, dataclasses.replace(base, **extra),
+                                   schedule="halo", labels=labels,
+                                   plans=plans, device="cpu")
+            plans = (solver.plan, solver.block_plan, solver.ell)
+            if not out:
+                out["build_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            plan = solver.lower()
+            out[tag] = dict(census=plan.census["solver"], bound=plan.bound,
+                            launches=plan.costs.kernel_launches,
+                            n_irls=base.n_irls, k=base.pcg_max_iters,
+                            plan_s=time.perf_counter() - t)
+    finally:
+        release_plan_world()
+    return out
+
+
+def plan_worker(path: str, names=("16b", "18b", "17b"), seed: int = 0) -> None:
     """19b's planning runs ``names`` (``plan_runs``: host time only, no
     card time): 16b's step and 18b's DIN step at a world of one, 17b's
-    sharded step on a fake (2, 2) world, all on fake CUDA tensors; writes
-    their peaks, memory and census to ``path``."""
+    sharded step on a fake (2, 2) world, all on fake CUDA tensors, and
+    13b's solves (``plan_13b``); writes their peaks, memory and census to
+    ``path``."""
     import torch
 
     from repro_torch.configs import lm as lm_configs
@@ -5594,6 +5847,8 @@ def plan_worker(path: str, names=("16b", "18b", "17b")) -> None:
     from repro_torch.launch.mesh import make_plan_mesh, release_plan_world
 
     out = {}
+    if "13b" in names:
+        out["13b"] = plan_13b(seed)
     cases = {
         "16b": lambda mesh: cells.build_lm_cell(
             "qwen2-1.5b", "train_4k", mesh,
@@ -5606,7 +5861,7 @@ def plan_worker(path: str, names=("16b", "18b", "17b")) -> None:
             dict(kind="train", global_batch=LM_SHARD_BATCH,
                  seq_len=LM_SHARD_SEQ))}
     shapes = {"16b": (1, 1), "18b": (1, 1), "17b": (2, 2)}
-    for name in names:
+    for name in (n for n in names if n in cases):
         shape = shapes[name]
         try:
             mesh = make_plan_mesh(shape, ("data", "model"), device="cuda")
@@ -5669,10 +5924,86 @@ def planner_phase(report: dict, out_dir: Path):
         f"card: logged only)")
     if got != want:
         fails.append(f"17b census planned {got} vs recorded {want}")
+    out["13b"] = adaptive_plans_held(plans["13b"],
+                                     report["sharded"]["ranks"]["halo_fused"],
+                                     fails)
     if plans["launches"] != NO_LAUNCHES:
         fails.append(f"planning launched {plans['launches']}")
     if fails:
         raise AssertionError("19b: " + "; ".join(fails))
+    return out
+
+
+def adaptive_plans_held(planned: dict, ran: dict, fails: list) -> dict:
+    """19b's plans of 13b's fused-halo solve (``plan_13b``) against rank
+    0's census of the fixed solve 13b ran on the card.  The fixed plan
+    equals the run: every scope's calls and bytes, the CG steps and the
+    launches.  Each adaptive plan is an upper bound with every PCG at its
+    K steps; per CG step it has the calls 13b ran and the CPU tests hold
+    (``SHARD_STEP_OPS``) with ``dot2``'s pair 4 bytes over the fixed r·z;
+    per IRLS iteration 13b's calls: the fractional cut's scalar
+    all-reduce stands where the fixed PCG reduces its last r·r, which the
+    masked PCG fuses into ``dot2``.  Beside them one more halo exchange,
+    the last voltages' fractional cut, and with the clamp its cap's
+    all-reduce once and its hit count's once a solve; one
+    ``fused_ell_sweep`` launch per IRLS iteration.  Appends what fails to
+    ``fails``."""
+    def calls(scopes):
+        return {f"{sc}/{op}": v["calls"] for sc, ops in scopes.items()
+                for op, v in ops.items()}
+
+    out = {"build_s": planned["build_s"]}
+    fixed = planned["fixed"]
+    T, K = fixed["n_irls"], fixed["k"]
+    launches = {"fused_ell_sweep": T}
+    same = (fixed["census"]["scopes"] == ran["scopes"]
+            and fixed["census"]["pcg_steps"] == ran["pcg_steps"]
+            and fixed["launches"] == {k: v for k, v in ran["launches"].items()
+                                      if v} == launches)
+    out["fixed"] = dict(equal=same, plan_s=fixed["plan_s"])
+    log(f"[plan] 19b 13b's fused halo at 48³ planned on a fake world of "
+        f"{SHARD_RANKS} in {fixed['plan_s']:.1f} s (plans built in "
+        f"{planned['build_s']:.1f} s): census and launches equal to rank "
+        f"0's run {same} ({fixed['census']['pcg_steps']} CG steps, "
+        f"{fixed['launches']})")
+    if not same:
+        fails.append(f"13b fixed plan {fixed} vs run {ran['scopes']}")
+    ran_calls = calls(ran["scopes"])
+    step_bytes = ran["per_pcg_step"]["bytes"]
+    for tag in ("adaptive", "adaptive_clamp"):
+        x = planned[tag]
+        clamp = tag.endswith("clamp")
+        per = dict(x["census"]["per_pcg_step"])
+        per_bytes = per.pop("bytes")
+        want = dict(ran_calls)
+        want["irls/all_gather"] += 1
+        if clamp:
+            want["irls/all_reduce"] += T + 1
+            want["setup/all_reduce"] = want.get("setup/all_reduce", 0) + 1
+        got = calls(x["census"]["scopes"])
+        want["pcg_step/all_gather"] = (T + 1) * K * SHARD_STEP_OPS["halo"][
+            "all_gather"]
+        want["pcg_step/all_reduce"] = (T + 1) * K * SHARD_STEP_OPS["halo"][
+            "all_reduce"]
+        ok = (x["bound"] == "upper" and per == SHARD_STEP_OPS["halo"]
+              and per_bytes == step_bytes + 4
+              and x["census"]["pcg_steps"] == (T + 1) * K
+              and got == want and x["launches"] == launches)
+        extra = {k: got.get(k, 0) - ran_calls.get(k, 0)
+                 for k in sorted(set(got) | set(ran_calls))
+                 if not k.startswith("pcg_step/")}
+        out[tag] = dict(ok=ok, bound=x["bound"], per_pcg_step=x["census"][
+            "per_pcg_step"], calls=got, over_run=extra,
+            pcg_steps=x["census"]["pcg_steps"], launches=x["launches"],
+            plan_s=x["plan_s"])
+        log(f"[plan] 19b 13b {tag}: bound {x['bound']}, "
+            f"{x['census']['pcg_steps']} CG steps (13b ran "
+            f"{ran['pcg_steps']}), per CG step {x['census']['per_pcg_step']} "
+            f"(13b: {ran['per_pcg_step']}), setup and IRLS-scope calls over "
+            f"13b's {extra}, launches {x['launches']}: held {ok}; planned "
+            f"in {x['plan_s']:.1f} s")
+        if not ok:
+            fails.append(f"13b {tag} plan {x} vs {want}")
     return out
 
 
@@ -5749,8 +6080,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from repro_torch.core import (IRLSConfig, MinCutSession, Problem,
-                                  max_flow, pirmcut)
+    from repro_torch.core import MinCutSession, Problem, max_flow, pirmcut
     from repro_torch.kernels import build, ops
 
     t_start = time.perf_counter()
@@ -5786,9 +6116,7 @@ def main(argv=None) -> int:
     report["generate_s"] = time.perf_counter() - t
     log(f"[instance] side {args.side}: n={inst.n} m={inst.graph.m} "
         f"P={n_blocks} in {report['generate_s']:.1f} s")
-    cfg = IRLSConfig(layout="ell", fuse_edge_sweep=True, use_pallas=True,
-                     precond="block_jacobi", explicit_block_inverse=True,
-                     n_blocks=n_blocks, n_irls=args.n_irls)
+    cfg = main_cfg(n_blocks, args.n_irls)
 
     # -- 3. kernels alone -----------------------------------------------------
     # the host setup pirmcut repeats in phase 4, timed part by part here
@@ -5940,6 +6268,10 @@ def main(argv=None) -> int:
     lap(10)
 
     # -- 11. delta staging, presolve and the CLIs ------------------------------
+    # 11d's ten processes run beside 11a-c (they take ~45-60 s; 11a-c
+    # hold bits and cuts, which processes beside them do not move)
+    started = start_clis({**cli_runs(out_dir), **example_runs(out_dir)},
+                         out_dir)
     report["delta_host"] = delta_host_phase(inst, labels, n_blocks, cfg,
                                             args.seed)
     torch.cuda.empty_cache()
@@ -5949,23 +6281,45 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     report["presolve"] = presolve_phase(args.seed)
     torch.cuda.empty_cache()
-    clis = finish_clis(start_clis(cli_runs(out_dir), out_dir))
+    t = time.perf_counter()
+    clis = finish_clis(started)
+    waited = time.perf_counter() - t
     report["cli"] = cli_phase(clis, out_dir)
-    for stale in out_dir.glob("chip_smoke_plans_*.json"):
-        stale.unlink()
-    plans = start_clis(plan_runs(out_dir), out_dir)      # joined in phase 19
+    report["examples"] = examples_phase(clis, out_dir)
+    wall_11d = max(c["seconds"] for c in clis.values())
+    others = max(c["seconds"] for k, c in clis.items()
+                 if not k.startswith("example_"))
+    report["examples"].update(wall_11d_s=wall_11d, waited_s=waited,
+                              added_s=wall_11d - others)
+    log(f"[examples] 11d's ten processes side by side in {wall_11d:.1f} s "
+        f"beside 11a-c (the run waited {waited:.1f} s for them after 11c); "
+        f"the slowest of the six CLIs {others:.1f} s: the examples add "
+        f"{wall_11d - others:.1f} s")
     lap(11)
 
     # -- 12. cut trees --------------------------------------------------------
     t = time.perf_counter()
+    # 12b's three builds and 12d's second refined build run in processes
+    # of their own beside 12a (all are bound by the host's launches, and
+    # leave the card ~93% idle)
+    route = start_clis({**route_run(out_dir, ROUTE_SIDE, args.seed),
+                        **refined_run(out_dir, EXACT_SIDE, args.seed)},
+                       out_dir)
+    second = {"cuttree_refined": route.pop("cuttree_refined")}
     report["cuttree"] = cuttree_build_phase(args.tree_side, args.seed, out_dir)
+    obs = start_clis(obs_run(report["cuttree"]["sink"]), out_dir)  # in 12d
     torch.cuda.empty_cache()
-    report["cuttree_route"] = cuttree_route_phase(ROUTE_SIDE, args.seed)
+    done = finish_clis(route)["cuttree_route"]
+    for line in done["stdout"].strip().splitlines():
+        log(line)
+    report["cuttree_route"] = json.loads(
+        (out_dir / "chip_smoke_cuttree_route.json").read_text())
+    report["cuttree_route"]["process_s"] = done["seconds"]
     report["cuttree_exact"], ctx = cuttree_exact_phase(EXACT_SIDE,
                                                        args.seed)
     report["cuttree_service"] = cuttree_service_phase(
         ctx, args.seed, report["cuttree"]["sink"], out_dir,
-        clis["cut_tree"])
+        clis["cut_tree"], obs, second)
     report["cuttree_s"] = time.perf_counter() - t
     log(f"[cuttree] phase 12 in {report['cuttree_s']:.1f} s")
     torch.cuda.empty_cache()
@@ -5988,13 +6342,14 @@ def main(argv=None) -> int:
 
     t = time.perf_counter()
     fused_cut = report["sharded"]["world_one"]["halo_fused"]["measured"]["cut"]
+    served = start_served_ranks(args.seed, out_dir)    # 15b beside 15a
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", Float32DivergenceWarning)
         report["sharded_serve"] = sharded_server_phase(inst, labels, cfg,
                                                        fused_cut, args.seed)
         torch.cuda.empty_cache()
-        report["sharded_serve4"] = sharded_ranks_server_phase(args.seed,
-                                                              out_dir)
+        report["sharded_serve4"] = sharded_ranks_server_phase(
+            args.seed, out_dir, started=served)
     report["perf"] = perf_gate_phase(inst, labels, n_blocks, cfg, kern,
                                      report["sharded_serve"], out_dir)
     report["phase15_s"] = time.perf_counter() - t
@@ -6002,6 +6357,11 @@ def main(argv=None) -> int:
     lap(15)
 
     # -- 16. LM training ----------------------------------------------------------
+    # phase 19's planning processes (host time only) run beside the
+    # card-bound phases 16-18, not beside the host-bound 12-15
+    for stale in out_dir.glob("chip_smoke_plans_*.json"):
+        stale.unlink()
+    plans = start_clis(plan_runs(out_dir, args.seed), out_dir)  # phase 19
     report["train"] = train_phase(args.seed, out_dir)
     torch.cuda.empty_cache()
     lap(16)

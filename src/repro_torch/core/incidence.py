@@ -168,3 +168,10 @@ def l1_objective(g: DeviceGraph, v: torch.Tensor) -> torch.Tensor:
     value per lane."""
     z_e, z_s, z_t = edge_residuals(g, v)
     return z_e.abs().sum(-1) + z_s.abs().sum(-1) + z_t.abs().sum(-1)
+
+
+def scatter_edge_to_node(g: DeviceGraph, y: torch.Tensor) -> torch.Tensor:
+    """``Bᵀ y`` over the non-terminal edges only: +y into src, −y into dst
+    (``y`` of shape (m,) or (B, m)), each node's edges summed in the fixed
+    order of ``g.coo``: the same bits on every run (no atomics)."""
+    return segment_sum(g.coo.by_src, y) - segment_sum(g.coo.by_dst, y)

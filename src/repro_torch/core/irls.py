@@ -79,8 +79,8 @@ class IRLSConfig:
                                       # (not used by the host driver)
     fuse_edge_sweep: bool = True      # build the per-iteration system in one
                                       # edge sweep (ELL layout only)
-    reweight_clamp: bool = False      # sharded float32 mitigation (sharded
-                                      # backend only; not ported yet)
+    reweight_clamp: bool = False      # sharded float32 mitigation: caps the
+                                      # reweights (sharded backend only)
 
 
 @dataclasses.dataclass

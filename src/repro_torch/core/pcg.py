@@ -139,14 +139,17 @@ def pcg(matvec: Callable[[torch.Tensor], torch.Tensor],
 
 def pcg_masked(matvec, b, x0=None, precond=None, tol=1e-3,
                max_iters: int = 50, dot=None, dot2=None,
-               step_scope=contextlib.nullcontext) -> PCGResult:
+               step_scope=contextlib.nullcontext,
+               planned: bool = False) -> PCGResult:
     """PCG with early exit and explicitly masked updates (no history).
 
     Same update rule as ``pcg``; every state update is gated on the lane's
     own ``active = rr > tol²·‖b‖²``, so a converged lane's (x, r, p) are
     frozen.  ``tol`` may be ``inf`` (per lane, too): zero iterations, ``x0``
     untouched.  ``iters`` is an int32 tensor of per-lane counts (0-d for a
-    single system)."""
+    single system).  ``planned`` (a planning run on fake tensors, which
+    cannot read the stop test on the host): all ``max_iters`` steps run,
+    each with its masked updates."""
     if precond is None:
         precond = lambda r: r
     dot, dot2 = _resolve_dots(dot, dot2)
@@ -166,7 +169,7 @@ def pcg_masked(matvec, b, x0=None, precond=None, tol=1e-3,
     step = 0
     # every lane still active has taken every step so far, so the shared
     # step count is the cap of each lane's own count
-    while step < max_iters and bool((rr > tol2).any()):
+    while step < max_iters and (planned or bool((rr > tol2).any())):
         with step_scope():
             active = rr > tol2
             Ap = matvec(p)

@@ -52,8 +52,11 @@ the first runs the same ops, so ``lower`` plans 1 and 2 iterations and
 extrapolates to T (the reference's body-once correction; a planned
 fake op costs ~0.1 ms of host time, and 50 × 50 PCG steps over 256 ranks
 take ~10⁶ of them).  The fixed schedule reads nothing back to the host, so
-it plans as it runs; the adaptive schedule's host reads cannot be
-planned.
+it plans as it runs.  The adaptive schedule reads its all-reduced scalars
+on the host, which a plan cannot: its plan runs the adaptive program at its
+largest trip count (every IRLS iteration, every PCG at ``pcg_max_iters``
+steps of the masked loop, the early exit's reductions made but never
+read), an upper bound (``Plan.bound == "upper"``).
 """
 from __future__ import annotations
 
@@ -311,6 +314,7 @@ class ShardedSolver:
         self.schedule = schedule
         self._planned = None   # the cached planning run (``compiled``)
         self._mode = None      # the FakeTensorMode of a planning run
+        self._planning = False  # inside ``lower``: no host reads
         self._labels = labels
         self._precond_bs = precond_bs
         self.ell = None        # HaloEllPlan when the fused sweep is active
@@ -483,11 +487,73 @@ class ShardedSolver:
         if adaptive:
             return pcg_masked(mv, b, x0=x0, precond=M, tol=tol,
                               max_iters=cfg.pcg_max_iters, dot=dot,
-                              dot2=dot2, step_scope=self.coll.pcg_step)
+                              dot2=dot2, step_scope=self.coll.pcg_step,
+                              planned=self._planning)
         return pcg_fixed_iters(mv, b, x0=x0, precond=M,
                                n_iters=cfg.pcg_max_iters,
                                record_history=False, dot=dot, dot2=dot2,
                                step_scope=self.coll.pcg_step)
+
+    def _irls(self, solve, prepare, frac, zeros):
+        """The IRLS schedule of both routes.
+
+        ``solve(eps, initial, x0, tol, ctx)`` builds and solves one
+        iteration's system and returns (v, rel, iters, clamp hits);
+        ``prepare(v)`` is what the next system and the fractional cut read
+        of ``v`` (the halo exchange; ``v`` itself on psum); ``frac(v, ctx)``
+        is the all-reduced ‖CBx‖₁, a device scalar.
+
+        The adaptive state machine runs on all-reduced scalars, so every
+        rank takes the SAME early-exit decision.  ``prepare(v)`` of the
+        post-iteration voltages powers both the fractional cut and the next
+        system: the early exit adds one scalar all-reduce per IRLS
+        iteration and nothing per PCG step.  In a planning run (``lower``)
+        nothing is read on the host: no iteration freezes, every PCG takes
+        its ``pcg_max_iters`` masked steps, and the fractional cut is
+        reduced but not read — the adaptive program at its largest trip
+        count."""
+        cfg = self.cfg
+        eps_np = eps_schedule_array(cfg)
+        adaptive = sched.is_adaptive(cfg)
+        tight = cfg.pcg_tight_tol
+        tol0 = sched.initial_tol(cfg, tight) if adaptive else cfg.pcg_tol
+        self.coll.scope = "irls"
+        v, _, _, _ = solve(cfg.eps, True, zeros, tol0, None)
+        rels, iters, nclamps = [], [], []
+        if not adaptive:
+            for eps_l in eps_np:
+                x0 = v if cfg.warm_start else torch.zeros_like(v)
+                v, rel, _, nc = solve(float(eps_l), False, x0, cfg.pcg_tol,
+                                      prepare(v))
+                rels.append(rel)
+                nclamps.append(nc)
+            return v, rels, [cfg.pcg_max_iters] * cfg.n_irls, nclamps
+
+        planning = self._planning
+        ctx = prepare(v)
+        f = frac(v, ctx)
+        st = None if planning else sched.init_state(cfg, float(f), tight)
+        for eps_l in eps_np:
+            done = not planning and bool(st.done)
+            x0 = v if cfg.warm_start else torch.zeros_like(v)
+            # a done solve freezes: tol=∞ parks its PCG at 0 iterations
+            tol = tol0 if planning else sched.inner_tol(st)
+            v2, rel, it, nc = solve(float(eps_l), False, x0, tol, ctx)
+            if done:
+                v2 = v
+            ctx = prepare(v2)
+            f = frac(v2, ctx)
+            rels.append(rel)
+            if planning:
+                iters.append(it)
+                nclamps.append(nc)
+            else:
+                it = int(it)
+                iters.append(0 if done else it)
+                nclamps.append(torch.zeros_like(nc) if done else nc)
+                st = sched.advance(cfg, st, float(f), float(rel), it, tight)
+            v = v2
+        return v, rels, iters, nclamps
 
     # -- halo schedule --------------------------------------------------------
     def _run_halo(self, t):
@@ -501,7 +567,6 @@ class ShardedSolver:
         eps_np = eps_schedule_array(cfg)
         clamp = bool(cfg.reweight_clamp)
         eps_last = float(eps_np[-1]) if len(eps_np) else float(cfg.eps)
-        tight = cfg.pcg_tight_tol
         heads, tails, c = t["heads"], t["tails"], t["c"]
         c_s, c_t, valid, export = t["c_s"], t["c_t"], t["valid"], t["export"]
         dtype, dev = c.dtype, c.device
@@ -617,49 +682,11 @@ class ShardedSolver:
             return res.x * valid, res.rel_res, res.iters, nc
 
         def frac_of(v_, ext_):
-            return float(coll.all_reduce(halo_l1_local(
-                heads, tails, c, c_s, c_t, v_, ext_)))
+            return coll.all_reduce(halo_l1_local(heads, tails, c, c_s, c_t,
+                                                 v_, ext_))
 
-        coll.scope = "irls"
-        zeros = torch.zeros(nl, dtype=dtype, device=dev)
-        tol0 = sched.initial_tol(cfg, tight) if adaptive else cfg.pcg_tol
-        v, _, _, _ = solve_wls(cfg.eps, True, zeros, tol0, None)
-        rels, iters, nclamps = [], [], []
-        if not adaptive:
-            for eps_l in eps_np:
-                x0 = v if cfg.warm_start else torch.zeros_like(v)
-                v, rel, _, nc = solve_wls(float(eps_l), False, x0,
-                                          cfg.pcg_tol, exchange(v))
-                rels.append(rel)
-                nclamps.append(nc)
-            iters = [cfg.pcg_max_iters] * cfg.n_irls
-            return v, rels, iters, nclamps
-
-        # adaptive: the state machine runs on all-reduced scalars, so every
-        # rank takes the SAME early-exit decision.  The exchange of the
-        # post-iteration voltages powers BOTH the fractional-cut reduction
-        # and the next iteration's system build — the early exit adds one
-        # scalar all-reduce per IRLS iteration and nothing per PCG step.
-        ext = exchange(v)
-        st = sched.init_state(cfg, frac_of(v, ext), tight)
-        for eps_l in eps_np:
-            done = bool(st.done)
-            x0 = v if cfg.warm_start else torch.zeros_like(v)
-            # a done solve freezes: tol=∞ parks its PCG at 0 iterations
-            v2, rel, it, nc = solve_wls(float(eps_l), False, x0,
-                                        sched.inner_tol(st), ext)
-            if done:
-                v2 = v
-            ext = exchange(v2)
-            frac = frac_of(v2, ext)
-            it = int(it)
-            rel_f = float(rel)
-            rels.append(rel)
-            iters.append(0 if done else it)
-            nclamps.append(torch.zeros_like(nc) if done else nc)
-            st = sched.advance(cfg, st, frac, rel_f, it, tight)
-            v = v2
-        return v, rels, iters, nclamps
+        return self._irls(solve_wls, exchange, frac_of,
+                          torch.zeros(nl, dtype=dtype, device=dev))
 
     # -- psum schedule ----------------------------------------------------------
     def _run_psum(self, t):
@@ -669,7 +696,6 @@ class ShardedSolver:
         eps_np = eps_schedule_array(cfg)
         clamp = bool(cfg.reweight_clamp)
         eps_last = float(eps_np[-1]) if len(eps_np) else float(cfg.eps)
-        tight = cfg.pcg_tight_tol
         src, dst, c, c_s, c_t = t["src"], t["dst"], t["c"], t["c_s"], t["c_t"]
         dtype, dev = c.dtype, c.device
         # v is REPLICATED here, so plain local dots already see the whole
@@ -703,7 +729,7 @@ class ShardedSolver:
             diag = torch.where(total > 0, total, torch.ones_like(total))
             return r, r_s, r_t, diag, nclamp
 
-        def solve_wls(v, eps, initial, x0, tol):
+        def solve_wls(eps, initial, x0, tol, v):
             r, r_s, r_t, diag, nclamp = conductances(v, eps, initial)
             rs_rt = r_s + r_t
 
@@ -712,44 +738,15 @@ class ShardedSolver:
             res = self._pcg(mv, r_s, x0, lambda x: x / diag, tol, adaptive)
             return res.x, res.rel_res, res.iters, nclamp
 
-        coll.scope = "irls"
-        zeros = torch.zeros(n_pad, dtype=dtype, device=dev)
-        tol0 = sched.initial_tol(cfg, tight) if adaptive else cfg.pcg_tol
-        v, _, _, _ = solve_wls(zeros, cfg.eps, True, zeros, tol0)
-        rels, iters, nclamps = [], [], []
-        if not adaptive:
-            for eps_l in eps_np:
-                x0 = v if cfg.warm_start else torch.zeros_like(v)
-                v, rel, _, nc = solve_wls(v, float(eps_l), False, x0,
-                                          cfg.pcg_tol)
-                rels.append(rel)
-                nclamps.append(nc)
-            iters = [cfg.pcg_max_iters] * cfg.n_irls
-            return v, rels, iters, nclamps
-
-        def l1(v_):
+        def l1(v_, _ctx):
             # edges are sharded (one all-reduce); terminals replicated
             z = c * (v_[src] - v_[dst])
             edge = coll.all_reduce(z.abs().sum())
-            return float(edge + (c_s * (1.0 - v_)).abs().sum()
-                         + (c_t * v_).abs().sum())
+            return (edge + (c_s * (1.0 - v_)).abs().sum()
+                    + (c_t * v_).abs().sum())
 
-        st = sched.init_state(cfg, l1(v), tight)
-        for eps_l in eps_np:
-            done = bool(st.done)
-            x0 = v if cfg.warm_start else torch.zeros_like(v)
-            v2, rel, it, nc = solve_wls(v, float(eps_l), False, x0,
-                                        sched.inner_tol(st))
-            if done:
-                v2 = v
-            it = int(it)
-            rel_f = float(rel)
-            rels.append(rel)
-            iters.append(0 if done else it)
-            nclamps.append(torch.zeros_like(nc) if done else nc)
-            st = sched.advance(cfg, st, l1(v2), rel_f, it, tight)
-            v = v2
-        return v, rels, iters, nclamps
+        return self._irls(solve_wls, lambda v_: v_, l1,
+                          torch.zeros(n_pad, dtype=dtype, device=dev))
 
     # -- execution --------------------------------------------------------------
     def _fake_mode(self):
@@ -761,14 +758,18 @@ class ShardedSolver:
                 or FakeTensorMode()
         return self._mode
 
+    def arrays(self) -> Tuple[torch.Tensor, ...]:
+        """This rank's shard: its uploaded plan rows on its device, in the
+        order that ``_body`` and ``abstract_inputs`` take them."""
+        return tuple(self._t.values())
+
     def abstract_inputs(self):
-        """This rank's shard (its uploaded plan rows, in ``_upload``'s
-        order) as fake tensors: the solve body's arguments."""
+        """``arrays()`` as fake tensors: the solve body's arguments."""
         from torch._subclasses.fake_tensor import FakeTensor
 
         mode = self._fake_mode()
         return tuple(t if isinstance(t, FakeTensor) else mode.from_tensor(t)
-                     for t in self._t.values())
+                     for t in self.arrays())
 
     def _body(self, *arrays):
         """The solve body on this rank's shard ``arrays``
@@ -789,30 +790,31 @@ class ShardedSolver:
     def lower(self):
         """The planning run of the solve body on ``abstract_inputs``
         (``launch.hlo_analysis.analyze``): its costs, memory and collective
-        census a rank.  The fixed schedule only: the adaptive one reads
-        reduced scalars back to the host, which a plan cannot."""
+        census a rank.  A fixed schedule plans as it runs; an adaptive one
+        at its largest trip count (``_irls``), marked ``bound="upper"``."""
         from ..launch import hlo_analysis
 
         cfg = self.cfg
-        if sched.is_adaptive(cfg) or cfg.reweight_clamp:
-            raise ValueError("a plan runs the fixed schedule: the adaptive "
-                             "schedule and the reweight clamp read device "
-                             "values on the host")
 
         def plan(n_irls):
             self.cfg = dataclasses.replace(cfg, n_irls=n_irls)
+            self._planning = True
             try:
                 return hlo_analysis.analyze(self._body,
                                             self.abstract_inputs(),
                                             self._fake_mode(), coll=self.coll)
             finally:
                 self.cfg = cfg
+                self._planning = False
 
         if cfg.n_irls <= 2 or cfg.eps_schedule is not None:
-            return plan(cfg.n_irls)
-        # the body-once correction: every IRLS iteration after the first
-        # runs the same ops, so plan 1 and 2 and extrapolate to T
-        return hlo_analysis.extrapolate(plan(1), plan(2), cfg.n_irls - 1)
+            out = plan(cfg.n_irls)
+        else:
+            # the body-once correction: every IRLS iteration after the
+            # first runs the same ops, so plan 1 and 2 and extrapolate to T
+            out = hlo_analysis.extrapolate(plan(1), plan(2), cfg.n_irls - 1)
+        out.bound = "upper" if sched.is_adaptive(cfg) else "exact"
+        return out
 
     def compiled(self):
         """``lower()``'s plan, cached."""
@@ -935,7 +937,7 @@ class ShardedSolver:
         """
         with trace.span("sharded.solve", schedule=self.schedule, p=self.p,
                         n=self.plan.n):
-            out, rels, iters, nclamps = self._body(*self._t.values())
+            out, rels, iters, nclamps = self._body(*self.arrays())
             if self.schedule == "halo":
                 v = out.reshape(-1).cpu().numpy()[self.plan.perm]
             else:

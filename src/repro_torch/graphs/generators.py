@@ -7,6 +7,8 @@ synthesize statistically matching families:
 
 * ``road_like``      — jittered-grid planar nets with degree ~2.6 (road proxy)
 * ``grid_2d/grid_3d``— 4/6/26-connected grids with smooth+noisy capacities
+* ``social_like``    — preferential attachment (power-law degrees): the
+  hub core with leaf and chain fringes that presolve shrinks
 * ``random_regular`` — small test graphs
 * ``flow_improve_instance`` — terminal edges built like FlowImprove from a
   seed bisection (how the paper makes road networks into s-t instances)
@@ -130,6 +132,30 @@ def grid_3d(d: int, h: int, w: int, conn: int = 6, seed: int = 0) -> EdgeList:
     field = _smooth_field((d, h, w), rng).ravel()
     wts = 1.0 + 4.0 * np.exp(-np.abs(field[src] - field[dst]) * 3.0) + rng.uniform(0, 1, size=src.shape[0])
     return _dedup_and_connect(src, dst, wts, n, rng)
+
+
+def social_like(n: int, seed: int = 0, m_max: int = 2) -> EdgeList:
+    """Preferential-attachment social-graph proxy (power-law degrees).
+
+    Each new node attaches to 1..``m_max`` existing nodes sampled
+    proportionally to degree: a dense hub core fringed with degree-1
+    leaves and degree-2 chains, the structure the kernelization rules
+    (``repro_torch.presolve``) eliminate.  Heavy-tailed edge weights."""
+    if n < 2:
+        raise ValueError(f"social_like needs n >= 2, got {n}")
+    rng = np.random.default_rng(seed)
+    src_l, dst_l = [0], [1]
+    pool = [0, 1]                   # one entry per edge endpoint
+    for v in range(2, n):
+        k = int(rng.integers(1, m_max + 1))
+        # a set of small ints iterates in one order on every run
+        targets = {int(pool[i]) for i in rng.integers(0, len(pool), size=k)}
+        for t in targets:
+            src_l.append(t)
+            dst_l.append(v)
+            pool.extend((t, v))
+    w = rng.lognormal(0.0, 0.75, size=len(src_l))
+    return _dedup_and_connect(np.asarray(src_l), np.asarray(dst_l), w, n, rng)
 
 
 def random_regular(n: int, deg: int, seed: int = 0) -> EdgeList:

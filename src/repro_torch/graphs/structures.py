@@ -3,6 +3,8 @@
 * ``EdgeList`` — canonical undirected edge list (each edge stored once with an
   arbitrary orientation ``src -> dst``); the layout the IRLS solver consumes.
 * ``CSR`` — host-side compressed sparse rows, used by the partitioner.
+* ``ELL`` — ELLPACK padded rows (``csr_to_ell``, ``edgelist_to_ell``) and
+  ``laplacian_dense``, the dense oracle of small tests.
 * ``STInstance`` — an s-t min-cut instance: non-terminal graph + terminal
   edge weights (the paper's §3.3 decomposition).
 
@@ -14,7 +16,7 @@ into the port.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -98,6 +100,27 @@ class CSR:
         return np.diff(self.indptr)
 
 
+class ELL(NamedTuple):
+    """ELLPACK padded neighbour layout (the ELL kernels' row form).
+
+    cols    : int32[n, k]  neighbour ids, padded with 0 where invalid
+    vals    : float[n, k]  off-diagonal values (0 where padded)
+    diag    : float[n]     diagonal of the (Laplacian-like) matrix
+    """
+
+    cols: np.ndarray
+    vals: np.ndarray
+    diag: np.ndarray
+
+    @property
+    def n(self) -> int:
+        return int(self.cols.shape[0])
+
+    @property
+    def k(self) -> int:
+        return int(self.cols.shape[1])
+
+
 def canonicalize_edges(src, dst, weight, n: int, merge: str = "sum",
                        return_map: bool = False):
     """Orient each edge ``lo < hi``, drop self-loops, sort by ``(lo, hi)``
@@ -152,6 +175,50 @@ def edgelist_to_csr(g: EdgeList) -> CSR:
     return CSR(indptr=indptr, indices=cols.astype(np.int32), data=vals, n=g.n)
 
 
+def csr_to_ell(a: CSR, diag: Optional[np.ndarray] = None,
+               k: Optional[int] = None) -> ELL:
+    """Pad a CSR adjacency into ELLPACK.  ``diag`` defaults to weighted degree
+    (i.e. the Laplacian diagonal)."""
+    deg = a.degrees()
+    kk = int(k if k is not None else (deg.max() if a.n else 0))
+    cols = np.zeros((a.n, kk), dtype=np.int32)
+    vals = np.zeros((a.n, kk), dtype=a.data.dtype)
+    for u in range(a.n):
+        lo, hi = a.indptr[u], a.indptr[u + 1]
+        cnt = int(hi - lo)
+        if cnt > kk:
+            raise ValueError(f"node {u} degree {cnt} exceeds ELL width {kk}")
+        cols[u, :cnt] = a.indices[lo:hi]
+        vals[u, :cnt] = a.data[lo:hi]
+    if diag is None:
+        diag = np.zeros(a.n, dtype=np.float64)
+        np.add.at(diag, np.repeat(np.arange(a.n), np.diff(a.indptr)), a.data)
+    return ELL(cols=cols, vals=vals, diag=np.asarray(diag))
+
+
+def edgelist_to_ell(g: EdgeList, k: Optional[int] = None) -> ELL:
+    """ELLPACK of the *Laplacian* of g: diag = weighted degree, off-diag = -w."""
+    ell = csr_to_ell(edgelist_to_csr(g), k=k)
+    return ELL(cols=ell.cols, vals=-ell.vals, diag=ell.diag)
+
+
+def laplacian_dense(g: EdgeList,
+                    reweight: Optional[np.ndarray] = None) -> np.ndarray:
+    """Dense Laplacian (testing oracle only); ``reweight`` multiplies the
+    edge weights."""
+    w = np.asarray(g.weight, dtype=np.float64)
+    if reweight is not None:
+        w = w * np.asarray(reweight, dtype=np.float64)
+    L = np.zeros((g.n, g.n), dtype=np.float64)
+    s = np.asarray(g.src)
+    d = np.asarray(g.dst)
+    np.add.at(L, (s, d), -w)
+    np.add.at(L, (d, s), -w)
+    np.add.at(L, (s, s), w)
+    np.add.at(L, (d, d), w)
+    return L
+
+
 class STInstance(NamedTuple):
     """An s-t min-cut instance: non-terminal graph + terminal edges.
 
@@ -175,6 +242,21 @@ class STInstance(NamedTuple):
     @property
     def t(self) -> int:
         return self.graph.n + 1
+
+    def full_edgelist(self) -> EdgeList:
+        """The full graph with its terminal edges, s = n and t = n + 1 (the
+        oracles' form)."""
+        su = np.nonzero(np.asarray(self.s_weight) > 0)[0]
+        tu = np.nonzero(np.asarray(self.t_weight) > 0)[0]
+        src = np.concatenate([np.asarray(self.graph.src),
+                              np.full(su.shape, self.s, dtype=np.int64),
+                              np.full(tu.shape, self.t, dtype=np.int64)])
+        dst = np.concatenate([np.asarray(self.graph.dst), su, tu])
+        w = np.concatenate([np.asarray(self.graph.weight),
+                            np.asarray(self.s_weight)[su],
+                            np.asarray(self.t_weight)[tu]])
+        return EdgeList(src=src.astype(np.int32), dst=dst.astype(np.int32),
+                        weight=w, n=self.n + 2)
 
     def cut_value(self, in_source: np.ndarray) -> float:
         """cut(S, S̄) for a boolean indicator over non-terminal nodes

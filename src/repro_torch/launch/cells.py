@@ -37,7 +37,9 @@ from ..configs import registry
 from ..models import gnn as gnn_m
 from ..models import recsys as din_m
 from ..models import transformer as tr
-from ..models.sharding import ShardingRules, lm_rules
+# local_shape: a leaf's block on one rank, as the layout tests read it
+from ..models.sharding import (ShardingRules, abstract_leaf as _leaf,  # noqa: F401
+                               lm_rules, local_shape)
 from ..train.optimizer import AdamWConfig
 
 
@@ -76,34 +78,6 @@ def _mesh_size(mesh) -> int:
 
 def _device(mesh) -> torch.device:
     return torch.device(mesh.device_type)
-
-
-def local_shape(shape, sharding) -> Tuple[int, ...]:
-    """A leaf's block on one rank: each tensor dim divided by the sizes of
-    the mesh dims that shard it (``sharding``: (mesh, placements) or None,
-    replicated)."""
-    shape = list(shape)
-    if sharding is not None:
-        mesh, placements = sharding
-        for i, pl in enumerate(placements):
-            if pl.is_shard():
-                shape[pl.dim] //= mesh.size(i)
-    return tuple(shape)
-
-
-def _leaf(shape, dtype, sharding, device):
-    """A fake leaf: a DTensor of the global ``shape`` holding this rank's
-    block, or (``sharding`` None) a tensor of ``shape``."""
-    from torch.distributed.tensor import DTensor
-
-    if sharding is None:
-        return torch.empty(shape, dtype=dtype, device=device)
-    mesh, placements = sharding
-    local = torch.empty(local_shape(shape, sharding), dtype=dtype,
-                        device=device)
-    return DTensor.from_local(local, mesh, placements, run_check=False,
-                              shape=torch.Size(shape),
-                              stride=torch.empty(shape, device="meta").stride())
 
 
 def _abstract(shapes, shardings, device):
@@ -328,7 +302,7 @@ def build_lm_cell(arch: str, cell_id: str, mesh, cfg=None,
     tok1_sh = rules.named_sharding("batch", shape=(B,))
     with mode:
         params = _abstract(pshapes, psh, dev)
-        cache = _abstract(cshapes, csh, dev)
+        cache = tr.abstract_cache(cfg, B, S, csh, dev)
         toks = _leaf((B,), torch.int32, tok1_sh, dev)
 
     def fn(p, c, t, i):

@@ -65,7 +65,8 @@ def record(arch: str, cell: str, mesh_name: str, n_ranks: int, prog,
 
     costs = plan.costs
     rec = {"arch": arch, "cell": cell, "mesh": mesh_name,
-           "n_ranks": n_ranks, "ok": True, "t_plan_s": t_plan,
+           "n_ranks": n_ranks, "ok": True, "bound": plan.bound,
+           "t_plan_s": t_plan,
            "plan_device": plan_device,
            "meta": {k: _plain(v) for k, v in prog.meta.items()},
            "memory": dict(plan.memory)}

@@ -285,13 +285,17 @@ class Costs:
 class Plan:
     """A planning run's record: its costs, its memory a rank, the census
     of its collectives as the port counts them (result-buffer bytes), its
-    outputs (fake tensors) and the ops walked."""
+    outputs (fake tensors) and the ops walked.  ``bound``: ``"exact"``
+    where the program's trip counts are those of a run, ``"upper"`` where
+    the plan takes the largest (an adaptive solve, whose early exit reads
+    device values that a plan does not have)."""
     costs: Costs
     memory: Dict[str, int]
     census: Dict[str, Any]
     outputs: Any
     ops: int
     launch_shapes: Dict[str, list]
+    bound: str = "exact"
 
 
 def _collective_costs(mesh, census: dict, solver: Optional[dict],
@@ -387,7 +391,7 @@ def extrapolate(one: Plan, two: Plan, n: float) -> Plan:
     return Plan(costs=costs, memory=dict(two.memory),
                 census=_lin(one.census, two.census, n), outputs=two.outputs,
                 ops=int(_lin(one.ops, two.ops, n)),
-                launch_shapes=two.launch_shapes)
+                launch_shapes=two.launch_shapes, bound=two.bound)
 
 
 def roofline_terms(costs: Costs) -> Dict[str, float]:

@@ -173,6 +173,36 @@ def lm_rules(mesh, data_axes: AxisNames = ("pod", "data"),
     })
 
 
+def local_shape(shape, sharding) -> Tuple[int, ...]:
+    """A leaf's block on one rank: each tensor dim divided by the sizes of
+    the mesh dims that shard it (``sharding``: (mesh, placements) or None,
+    replicated)."""
+    shape = list(shape)
+    if sharding is not None:
+        mesh, placements = sharding
+        for i, pl in enumerate(placements):
+            if pl.is_shard():
+                shape[pl.dim] //= mesh.size(i)
+    return tuple(shape)
+
+
+def abstract_leaf(shape, dtype, sharding, device):
+    """A leaf without storage of its own (a meta tensor, or a fake one
+    inside a ``FakeTensorMode``): a DTensor of the global ``shape`` holding
+    this rank's block, or (``sharding`` None) a tensor of ``shape``."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    if sharding is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    mesh, placements = sharding
+    local = torch.empty(local_shape(shape, sharding), dtype=dtype,
+                        device=device)
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
+
+
 def stored_dims(t, lead: int = 0) -> Dict[str, int]:
     """{mesh dim name: the tensor dim it shards} of a DTensor, the dims
     counted after dropping ``lead`` leading ones (a layer stack's L, a

@@ -56,8 +56,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..distributed import collectives as C
 from . import layers as L
-from .sharding import (ShardingRules, as_axes, local_block, no_sharding,
-                       stored_dims, whole)
+from .sharding import (ShardingRules, abstract_leaf, as_axes, local_block,
+                       no_sharding, stored_dims, whole)
 
 def as_torch_dtype(dtype) -> torch.dtype:
     """A torch dtype from a torch, numpy or JAX dtype, or a dtype's name."""
@@ -815,6 +815,18 @@ def cache_shapes(cfg: LMConfig, batch: int, seq_len: int):
         shapes["local_k"] = ((n_local, batch, w, KV, Dh), cfg.dtype)
         shapes["local_v"] = ((n_local, batch, w, KV, Dh), cfg.dtype)
     return shapes
+
+
+def abstract_cache(cfg: LMConfig, batch: int, seq_len: int, shardings=None,
+                   device="meta"):
+    """The caches of ``cache_shapes`` without storage (the reference's
+    ``ShapeDtypeStruct`` tree): meta tensors, or fake ones of ``device``
+    inside a ``FakeTensorMode`` (the dry runs).  With ``shardings``
+    (``cache_shardings``'), each is a DTensor holding this rank's block."""
+    return {k: abstract_leaf(s, as_torch_dtype(d),
+                             None if shardings is None else shardings[k],
+                             device)
+            for k, (s, d) in cache_shapes(cfg, batch, seq_len).items()}
 
 
 def init_cache(cfg: LMConfig, batch: int, seq_len: int, device="cuda"):

@@ -14,7 +14,8 @@ Checks mirror ``tests/test_distributed.py`` and ``tests/test_halo_plan.py``:
 both schedules at Dinic, port against reference (fractional cut,
 voltages, adaptive PCG spend), the session backend's refills, the
 reweight clamp, the collective census (halo against psum bytes, int8,
-fixed against adaptive per CG step, one all-reduce for ``dot2``), the
+fixed against adaptive per CG step, one all-reduce for ``dot2``, the
+adaptive and clamped plans on a fake world against the runs), the
 fused sweep against the unfused build, non-dividing n, empty boundary
 sets, a world of one against the scanned backend, the solve CLI under
 ``torchrun`` against the reference CLI, and the failure modes.
@@ -116,6 +117,17 @@ for sched in ("halo", "psum"):
         out[sched + "_" + tag] = r
 """
 
+# the adaptive schedule at its largest trip count on the parity grid: no
+# PCG stops early (tight tolerance 1e-30 squares to 0 in float32) and no
+# IRLS iteration freezes (three iterations, patience 2), with and without
+# the clamp; the plans of these runs must equal them exactly
+_FULL_TRIP = """
+FULL_TRIP = {tag: IRLSConfig(n_irls=3, pcg_max_iters=5, eps=1e-3,
+                             irls_tol=1e-9, pcg_tight_tol=1e-30,
+                             reweight_clamp=clamp)
+             for tag, clamp in (("plain", False), ("clamp", True))}
+"""
+
 # the reference's own check at its config: the two-level cut at Dinic
 _PORT4 = _PARITY + """
 out["exact"] = max_flow(inst).value
@@ -157,6 +169,17 @@ for comp in (None, "int8"):
         "per_step": s.collective_stats()["per_pcg_step"],
         "cut": two_level(wide, v).cut_value,
         "valid": bool(v.min() > -1 and v.max() < 2)}
+
+# the adaptive schedule at its largest trip count, both schedules
+inst20 = grid(20, 7)
+labels20 = gp.partition_kway(inst20.graph, 4)
+for sched in ("halo", "psum"):
+    for tag, cfg in FULL_TRIP.items():
+        s = ShardedSolver(inst20, cfg, schedule=sched, labels=labels20,
+                          precond_bs=64, **DEV)
+        _, _, iters = s.solve()
+        out[f"full_{sched}_{tag}"] = {"iters": np.asarray(iters).tolist(),
+                                      "stats": s.collective_stats()}
 
 # n = 399 on 4 ranks: a padded last shard
 odd = grid(19, 3, 21)
@@ -247,6 +270,33 @@ for tag, extra in (("fixed", {}),
                           "cut_fused": got[True][0],
                           "max_dv": float(np.abs(got[False][1]
                                                  - got[True][1]).max())}
+emit(out)
+"""
+
+# the plans of the parity grid's adaptive solves and of the full-trip
+# configs, on a fake world of four in one process (``ShardedSolver.lower``)
+_PLAN4 = """
+import torch
+torch.set_num_threads(1)
+RANK = 0
+from repro_torch.graphs import generators as gen, partition as gp
+from repro_torch.core import IRLSConfig
+from repro_torch.distributed.solver import ShardedSolver
+from repro_torch.launch.mesh import make_plan_mesh, release_plan_world
+""" + _FULL_TRIP + """
+inst = grid(20, 7)
+labels = gp.partition_kway(inst.graph, 4)
+make_plan_mesh((2, 2), ("data", "model"), device="cpu")
+adaptive = IRLSConfig(n_irls=20, pcg_max_iters=80, eps=1e-3, irls_tol=1e-3,
+                      adaptive_tol=True)
+out = {}
+for sched in ("halo", "psum"):
+    for tag, cfg in [("adaptive", adaptive)] + [("full_" + k, v) for k, v
+                                                in FULL_TRIP.items()]:
+        plan = ShardedSolver(inst, cfg, schedule=sched, labels=labels,
+                             precond_bs=64, device="cpu").lower()
+        out[sched + "_" + tag] = dict(plan.census["solver"], bound=plan.bound)
+release_plan_world()
 emit(out)
 """
 
@@ -414,7 +464,9 @@ class _Jobs:
             "port4": dict(code=rank + _PORT4 + _END, ranks=4),
             "world1": dict(code=_COMMON + _WORLD1),
             "ref_cli": dict(argv=ref_cli, devices=2),
-            "port4_more": dict(code=rank + _PORT4_MORE + _END, ranks=4),
+            "port4_more": dict(code=rank + _FULL_TRIP + _PORT4_MORE + _END,
+                               ranks=4),
+            "plan4": dict(code=_COMMON + _PLAN4),
             "port2": dict(code=rank + _PORT2 + _END, ranks=2),
             "port_cli": dict(argv=port_cli, slots=3),
             "port8": dict(code=rank + _PORT8 + _END, ranks=8),
@@ -530,6 +582,41 @@ def test_fixed_and_adaptive_collectives_per_pcg_step_equal(jobs, sched):
     want = ({"all_gather": 1.0, "all_reduce": 2.0, "calls": 3.0}
             if sched == "halo" else {"all_reduce": 1.0, "calls": 1.0})
     assert ops(fixed) == want
+
+
+@pytest.mark.parametrize("sched", ["halo", "psum"])
+def test_adaptive_plan_census_against_the_run(jobs, sched):
+    """``lower()`` of the parity grid's adaptive config on a fake world of
+    four against the 4-rank gloo run of the same config: an upper bound,
+    the run's collectives per CG step (calls and bytes) and per IRLS
+    iteration (the ``irls`` and ``setup`` scopes of the same T, equal:
+    a frozen iteration still reduces its fractional cut and enters its
+    PCG), and every total at or above the run's, since the run's PCGs stop
+    early and the plan's take all K steps."""
+    plan = jobs["plan4"][sched + "_adaptive"]
+    run = jobs["port4"][sched + "_adaptive"]["stats"]
+    assert plan["bound"] == "upper"
+    assert plan["per_pcg_step"] == run["per_pcg_step"]
+    for scope in ("setup", "irls"):
+        assert plan["scopes"].get(scope) == run["scopes"].get(scope), scope
+    assert plan["pcg_steps"] == 21 * 80 >= run["pcg_steps"]
+    for op, v in run["scopes"]["pcg_step"].items():
+        assert plan["scopes"]["pcg_step"][op]["calls"] >= v["calls"]
+        assert plan["scopes"]["pcg_step"][op]["bytes"] >= v["bytes"]
+
+
+@pytest.mark.parametrize("tag", ["plain", "clamp"])
+@pytest.mark.parametrize("sched", ["halo", "psum"])
+def test_full_trip_plan_equals_the_run(jobs, sched, tag):
+    """Where the run takes every IRLS iteration and every PCG step, the
+    adaptive plan (extrapolated from 1 and 2 planned iterations) equals it:
+    every scope's calls and bytes, and the CG steps."""
+    plan = jobs["plan4"][f"{sched}_full_{tag}"]
+    run = jobs["port4_more"][f"full_{sched}_{tag}"]
+    assert run["iters"] == [5, 5, 5]
+    assert plan["bound"] == "upper"
+    assert plan["pcg_steps"] == run["stats"]["pcg_steps"] == 4 * 5
+    assert plan["scopes"] == run["stats"]["scopes"]
 
 
 def test_dot2_is_one_all_reduce(jobs):

@@ -352,6 +352,93 @@ def test_solver_body_once_equals_the_whole_schedule(plan_mesh):
                                                   s._t.values()))
 
 
+ADAPTIVE = dict(irls_tol=1e-3, adaptive_tol=True)
+ROUTES = ["cell", "halo_fused", "psum"]
+
+
+def _route_plan(mesh, route, extra):
+    """(plan under ``extra``, T, K) of a route: ``cell`` is the reduced
+    solver cell (the unfused halo build on abstract plans), the others a
+    12×12 segmentation grid on the fake world of four."""
+    import dataclasses
+
+    from repro_torch.core import IRLSConfig
+    from repro_torch.distributed.solver import ShardedSolver
+    from repro_torch.graphs import generators as gen
+
+    if route == "cell":
+        cell = dict(kind="solve", n_nodes=2000, n_edges=4000,
+                    boundary_frac=0.02)
+        base = registry.get("pirmcut").make_reduced()
+        cfg = dataclasses.replace(base, **extra)
+        return _plan(mesh, "pirmcut", cell, cfg)[1], cfg.n_irls, \
+            cfg.pcg_max_iters
+    inst = gen.segmentation_instance(gen.grid_2d(12, 12, seed=1), (12, 12),
+                                     seed=2)
+    sched, fuse = {"halo_fused": ("halo", True), "psum": ("psum", True)}[route]
+    cfg = IRLSConfig(n_irls=3, pcg_max_iters=4, eps=1e-3, use_pallas=True,
+                     fuse_edge_sweep=fuse, **extra)
+    plan = ShardedSolver(inst, cfg, schedule=sched, precond_bs=32,
+                         device="cpu").lower()
+    return plan, cfg.n_irls, cfg.pcg_max_iters
+
+
+@pytest.fixture(scope="module")
+def fixed_route_plans():
+    """Each route's plan of the fixed schedule, on a fake world of its
+    own."""
+    from repro_torch.launch.mesh import make_plan_mesh, release_plan_world
+
+    warnings.simplefilter("ignore")
+    try:
+        mesh = make_plan_mesh((2, 2), ("data", "model"))
+        return {r: _route_plan(mesh, r, {})[0] for r in ROUTES}
+    finally:
+        release_plan_world()
+
+
+@pytest.mark.parametrize("extra", [ADAPTIVE, dict(reweight_clamp=True),
+                                   dict(ADAPTIVE, reweight_clamp=True)],
+                         ids=["adaptive", "clamp", "adaptive_clamp"])
+@pytest.mark.parametrize("route", ROUTES)
+def test_planned_adaptive_and_clamped_solver(fixed_route_plans, plan_mesh,
+                                             route, extra):
+    """The adaptive schedule and the reweight clamp plan on both schedules
+    (the solver cell through ``launch.cells``; a grid through ``lower``).
+    An adaptive plan is an upper bound: every PCG takes its K steps of the
+    masked loop ((T + 1)·K CG steps, each with the fixed plan's
+    collectives; on halo ``dot2`` reduces the pair [r·z, r·r] where the
+    fixed PCG reduces r·z, 4 bytes more), one kernel launch per reweighted
+    iteration.  Against the fixed plan: on halo the fractional cut's
+    all-reduce takes the place of the fixed PCG's last r·r (``dot2`` fuses
+    it into the first r·z) and the last voltages' cut needs one more
+    exchange; on psum (local dots) it is one more all-reduce a solve.  The
+    clamp adds its cap's all-reduce once and its hit count's once a solve
+    (each reweighted one on psum)."""
+    fixed = fixed_route_plans[route]
+    plan, T, K = _route_plan(plan_mesh, route, extra)
+    adaptive, clamp = "irls_tol" in extra, "reweight_clamp" in extra
+    kernel = "fused_ell_sweep" if route == "halo_fused" else "edge_reweight"
+    assert fixed.bound == "exact"
+    assert plan.bound == ("upper" if adaptive else "exact")
+    assert plan.costs.kernel_launches == {kernel: T}
+    solver, fsolver = plan.census["solver"], fixed.census["solver"]
+    assert solver["pcg_steps"] == fsolver["pcg_steps"] == (T + 1) * K
+    per, fper = dict(solver["per_pcg_step"]), dict(fsolver["per_pcg_step"])
+    assert per.pop("bytes") == fper.pop("bytes") + 4 * (
+        adaptive and route != "psum")
+    assert per == fper
+    got, want = plan.costs.collective_counts, fixed.costs.collective_counts
+    if route == "psum":
+        more = {"irls/all_reduce": (T + 1) * adaptive + T * clamp}
+    else:
+        more = {"irls/all_reduce": (T + 1) * clamp,
+                "irls/all_gather": 1 * adaptive}
+    more["setup/all_reduce"] = 1 * clamp
+    for key in set(got) | set(want) | set(more):
+        assert got.get(key, 0) == want.get(key, 0) + more.get(key, 0), key
+
+
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "gemma3-27b"])
 def test_planned_prefill_counts_flash_fwd(plan_mesh, arch):
     """A planned prefill reaches ``ops.flash_fwd`` on fake tensors: one

@@ -219,3 +219,74 @@ def test_port_dry_run_modules_stand_alone():
     assert names >= {"repro_torch.launch.cells", "repro_torch.launch.dryrun",
                      "repro_torch.launch.hlo_analysis",
                      "repro_torch.configs.pirmcut"}
+
+
+
+_EXAMPLES = """
+import contextlib, io, json, runpy, sys
+sys.modules["jax"] = None            # any `import jax` now raises
+runs, out = json.loads(sys.argv[1]), {}
+for name, argv in runs:
+    sys.argv = [name] + argv
+    buf, code = io.StringIO(), 0
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(name, run_name="__main__")
+    except SystemExit as e:          # as the interpreter maps it to a code
+        code = e.code if isinstance(e.code, int) or e.code is None else 1
+        buf.write(str(e.code))
+    out[f"{name} {' '.join(argv)}"] = [code or 0, buf.getvalue()]
+out["loaded"] = sorted(m for m in sys.modules
+                       if m == "repro" or m.startswith("repro."))
+out["jax"] = "jax" in sys.modules and sys.modules["jax"] is not None
+print(json.dumps(out))
+"""
+_SCRIPTS = sorted(p.name for p in (SRC.parent / "examples" / "torch").glob(
+    "*.py"))
+
+
+@pytest.fixture(scope="module")
+def example_runs(tmp_path_factory):
+    """Every script of ``examples/torch/`` run in one process with ``jax``
+    blocked: as a user starts it (no flag: the card, and here there is
+    none) and on the CPU to its end (``train_lm.py`` for one step of batch
+    1, 32 tokens)."""
+    ckpt = str(tmp_path_factory.mktemp("train_lm"))
+    runs = []
+    for script in _SCRIPTS:
+        path = str(SRC.parent / "examples" / "torch" / script)
+        cpu = ["--device", "cpu"]
+        if script == "train_lm.py":
+            cpu += ["--steps", "1", "--batch", "1", "--seq", "32",
+                    "--ckpt-dir", ckpt]
+        runs += [(path, []), (path, cpu)]
+    import json
+
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="2")
+    out = subprocess.run([sys.executable, "-c", _EXAMPLES, json.dumps(runs)],
+                         env=env, capture_output=True, text=True, timeout=900)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("script", _SCRIPTS)
+def test_port_examples_run_without_jax_or_repro(example_runs, script):
+    """Every script in ``examples/torch/`` runs on the CPU to its end with
+    ``jax`` blocked, and none of them loads a ``repro`` module."""
+    (code, text), = [v for k, v in example_runs.items()
+                     if k.startswith(str(SRC.parent / "examples" / "torch"
+                                         / script) + " --device cpu")]
+    assert code == 0 and text.strip(), text[-2000:]
+    assert example_runs["loaded"] == [] and not example_runs["jax"]
+
+
+@pytest.mark.parametrize("script", _SCRIPTS)
+def test_port_examples_need_a_card_by_default(example_runs, script):
+    """Without ``--device cpu`` a script runs on the card: where there is
+    none it exits non-zero naming the flag, and does not fall back to the
+    CPU."""
+    code, text = example_runs[str(SRC.parent / "examples" / "torch" / script)
+                              + " "]
+    assert code != 0
+    assert "--device cpu" in text

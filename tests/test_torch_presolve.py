@@ -267,6 +267,28 @@ def test_lift_and_certificate_match_reference(name):
         assert cert["rel_gap"] == pytest.approx(0.0, abs=1e-12)
 
 
+@pytest.mark.parametrize("n,seed", [(30, 0), (51, 3), (120, 8)])
+def test_kernelize_on_the_ports_social_like_matches_reference(n, seed):
+    """The port's own ``social_like`` (no instance borrowed from the JAX
+    package), pinned to a node pair as ``_pinned`` pins the reference's:
+    the same kernel array for array, and exact against Dinic."""
+    from repro_torch.core import rebind_terminals
+    from repro_torch.graphs import generators as gen
+
+    g = gen.social_like(n, seed=seed)
+    s, t = np.random.default_rng(seed).choice(g.n, size=2, replace=False)
+    zeros = np.zeros(g.n)
+    w = rebind_terminals(STInstance(graph=g, s_weight=zeros,
+                                    t_weight=zeros), int(s), int(t))
+    inst = STInstance(graph=g, s_weight=w.c_s, t_weight=w.c_t)
+    want_inst = _pinned(jgen.social_like(n, seed=seed), int(s), int(t))
+    got, want = pre.kernelize(inst), jpre.kernelize(want_inst)
+    _same(got, want, f"social_like({n}, {seed})")
+    oracle = max_flow(inst).value
+    kv = got.base if got.trivial else max_flow(got.instance).value + got.base
+    assert kv == pytest.approx(oracle, abs=1e-9)
+
+
 def test_problem_contract_and_derive_match_reference(road_instance):
     inst = _port(road_instance)
     prob, jprob = Problem.build(inst, 1), JProblem.build(road_instance, 1)
