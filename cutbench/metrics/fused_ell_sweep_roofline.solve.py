@@ -1,0 +1,17 @@
+"""``fused_ell_sweep``'s share of its roofline: the bytes each call must
+move, from the cell's shapes, over the kernel's device time, at 3.35 TB/s,
+in %."""
+
+from cutbench import yardstick
+
+
+def read(run):
+    t = run.trace
+    if t is None:
+        return None
+    calls, secs = t.kernel("fused_ell_sweep")
+    s = run.record["shape"]
+    if not calls or secs <= 0 or "k" not in s:
+        return None
+    need = calls * yardstick.fused_ell_sweep_bytes(s["n"], s["k"])
+    return 100.0 * need / yardstick.HBM_BYTES_PER_S / secs
